@@ -1,0 +1,1 @@
+"""Pixel operations and the hand-written CUDA kernels of the port."""

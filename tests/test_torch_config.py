@@ -1,0 +1,94 @@
+"""The PyTorch port's configuration, derived constants, import isolation and
+entry-point checks, against the JAX package."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from sift_tpu.config import SiftConfig as JaxSiftConfig
+from sift_tpu.frontend.pyramid import lowe_sigma_schedule as jax_schedule
+from sift_tpu.kernels.gaussian import blur_matrix as jax_blur_matrix
+from sift_tpu.kernels.gaussian import gaussian_kernel_1d as jax_taps
+
+import sift_tpu_torch
+from sift_tpu_torch.config import SiftConfig, config_from_dict
+from sift_tpu_torch.frontend.pyramid import lowe_sigma_schedule
+from sift_tpu_torch.frontend.sift import extract_batch
+from sift_tpu_torch.kernels.gaussian import blur_matrix, gaussian_kernel_1d
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_fields_and_defaults_match_jax():
+    ours = {f.name: f.default for f in dataclasses.fields(SiftConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JaxSiftConfig)}
+    assert ours == theirs
+    for o in range(6):
+        assert SiftConfig().octave_cap(o) == JaxSiftConfig().octave_cap(o)
+    assert SiftConfig().gaussians_per_octave == JaxSiftConfig().gaussians_per_octave
+
+
+def test_config_from_dict_round_trips():
+    jcfg = JaxSiftConfig(max_keypoints_per_octave=384, rootsift=True,
+                         window_dtype="float32", dogs_per_epoch=4)
+    cfg = config_from_dict(dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert config_from_dict(dataclasses.asdict(cfg)) == cfg
+    with pytest.raises(ValueError):
+        config_from_dict({"no_such_field": 1})
+
+
+@pytest.mark.parametrize("n,sigma", [(1, 1.6), (7, 1.2), (61, 2.0159),
+                                     (600, 1.2489996), (488, 2.5398)])
+def test_blur_matrix_bit_equal(n, sigma):
+    np.testing.assert_array_equal(blur_matrix(n, sigma), jax_blur_matrix(n, sigma))
+    np.testing.assert_array_equal(gaussian_kernel_1d(sigma), jax_taps(sigma))
+
+
+@pytest.mark.parametrize("kw", [{}, {"dogs_per_epoch": 4, "octaves": 5},
+                                {"sigma": 1.2, "k": 1.5}])
+def test_sigma_schedule_bit_equal(kw):
+    for a, b in zip(lowe_sigma_schedule(SiftConfig(**kw)),
+                    jax_schedule(JaxSiftConfig(**kw))):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, sift_tpu_torch, sift_tpu_torch.frontend.sift\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'sift_tpu')\n"
+            "       or m.startswith(('jax.', 'jaxlib', 'flax.', 'sift_tpu.'))]\n"
+            "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_card_path_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    imgs = np.zeros((1, 32, 32), np.float32)
+    with pytest.raises(RuntimeError):
+        extract_batch(imgs, SiftConfig())
+    with pytest.raises(RuntimeError):
+        sift_tpu_torch.extract(imgs[0])
+
+
+def test_pallas_off_refused_on_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError):
+        extract_batch(np.zeros((1, 32, 32), np.float32),
+                      SiftConfig(pallas="off"), device="cuda")
+
+
+@pytest.mark.parametrize("kw", [{"mode": "parity"}, {"subpixel": True},
+                                {"extrema_topk": "approx"}])
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError):
+        extract_batch(np.zeros((1, 32, 32), np.float32), SiftConfig(**kw),
+                      device="cpu")
