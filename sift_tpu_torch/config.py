@@ -1,11 +1,11 @@
-"""SIFT frontend configuration for the PyTorch port.
+"""Configuration of the PyTorch port.
 
-A copy of `sift_tpu.config.SiftConfig` (same fields, defaults and checks),
-kept here so that importing the port never imports the JAX package.
-The system has no learned weights: the configuration, and the blur
-operators and sigma tables derived from it, are all that crosses from
-the JAX package. `config_from_dict` takes `dataclasses.asdict` of a
-`sift_tpu` config.
+Copies of `sift_tpu.config.SiftConfig`, `MatchConfig` and `RansacConfig`
+(same fields, defaults and checks), kept here so that importing the port
+never imports the JAX package. The system has no learned weights: the
+configuration, and the blur operators and sigma tables derived from it,
+are all that crosses from the JAX package. `config_from_dict` takes
+`dataclasses.asdict` of a `sift_tpu` config.
 """
 
 from __future__ import annotations
@@ -68,10 +68,46 @@ class SiftConfig:
         return dataclasses.replace(self, **kw)
 
 
-def config_from_dict(d: dict) -> SiftConfig:
-    """Build a port config from `dataclasses.asdict` of a JAX-package config."""
-    names = {f.name for f in dataclasses.fields(SiftConfig)}
-    unknown = set(d) - names
-    if unknown:
-        raise ValueError(f"unknown SiftConfig fields: {sorted(unknown)}")
-    return SiftConfig(**d)
+@dataclasses.dataclass(frozen=True)
+class MatchConfig:
+    """Brute-force descriptor matching (dense distances + ratio test)."""
+
+    ratio: float = 0.8            # Lowe ratio test threshold
+    mutual: bool = True           # require mutual nearest neighbours
+    max_matches: int = 1024       # static output size (masked)
+    metric: str = "l2"            # "l2" | "dot" | "l2q8"
+    # Top-2 backend, named as in the JAX package: "auto" takes the
+    # streaming top-2 kernel for large sets of CUDA tensors; "pallas"
+    # forces the streaming formulation (kernel on the card, its plain
+    # version on the CPU); "xla" forces the dense path.
+    impl: str = "auto"
+
+    def replace(self, **kw) -> "MatchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class RansacConfig:
+    """Batched-hypothesis RANSAC (no data-dependent loop: fixed batch+argmax)."""
+
+    num_hypotheses: int = 512
+    inlier_threshold: float = 2.0   # pixels (model-dependent interpretation)
+    min_inliers: int = 15
+    refit: bool = True              # weighted least-squares refit on inliers
+    essential_solver: str = "5pt"   # "5pt" minimal | "8pt" linear (not ported)
+
+    def replace(self, **kw) -> "RansacConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_CONFIGS = (SiftConfig, MatchConfig, RansacConfig)
+
+
+def config_from_dict(d: dict):
+    """Build a port config from `dataclasses.asdict` of a JAX-package
+    config: the one of `SiftConfig`, `MatchConfig`, `RansacConfig` whose
+    fields hold every key (their field names are disjoint)."""
+    for cls in _CONFIGS:
+        if set(d) <= {f.name for f in dataclasses.fields(cls)}:
+            return cls(**d)
+    raise ValueError(f"no port config has all of the fields {sorted(d)}")

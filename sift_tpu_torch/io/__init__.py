@@ -1,0 +1,5 @@
+"""Host-side IO of the PyTorch port: image decode/encode, match plots."""
+
+from sift_tpu_torch.io.image import load_image_gray, save_image_gray, save_image_rgb
+
+__all__ = ["load_image_gray", "save_image_gray", "save_image_rgb"]

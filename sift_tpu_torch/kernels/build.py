@@ -31,6 +31,7 @@ KERNELS = {
     "windows": [],
     "refine": ["-fmad=false"],
     "descriptor": [],
+    "match": [],
 }
 
 _libs: dict = {}

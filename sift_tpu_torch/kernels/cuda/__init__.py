@@ -1,10 +1,10 @@
 """Hand-written CUDA kernels of the port, one module each, with their
 plain PyTorch versions and launch counters."""
 
-from sift_tpu_torch.kernels.cuda import descriptor, refine, windows
+from sift_tpu_torch.kernels.cuda import descriptor, match, refine, windows
 
 _MODULES = {"gather_windows": windows, "refine_walk": refine,
-            "descriptor_accumulate": descriptor}
+            "descriptor_accumulate": descriptor, "streaming_top2": match}
 
 
 def launch_counts() -> dict:

@@ -1,9 +1,11 @@
-"""Keypoint buffers of the PyTorch port (counterpart of `sift_tpu.types`).
+"""Fixed-capacity buffers of the PyTorch port (counterpart of
+`sift_tpu.types`).
 
 A `Keypoints` batch has fixed-capacity tensors plus a validity mask;
 invalid slots carry padding values. Positions are (x, y) in the
 coordinate frame of the keypoint's (octave, level): x indexes width,
-y indexes height.
+y indexes height. `to_image_xy` maps them to original-image pixels by the
+reference's rule `loc * 2**octave / (2 if subpixel else 1)`.
 """
 
 from __future__ import annotations
@@ -46,3 +48,50 @@ class Keypoints:
     def to_numpy(self) -> "Keypoints":
         """The same keypoints with every field as a numpy array."""
         return self.map(lambda t: t.detach().cpu().numpy())
+
+    @property
+    def capacity(self) -> int:
+        return self.x.shape[-1]
+
+    def count(self) -> torch.Tensor:
+        return self.valid.to(torch.int32).sum(dim=-1)
+
+    def to_image_xy(self, subpixel: bool = False):
+        """Positions in original-image pixels."""
+        factor = torch.exp2(self.octave.to(torch.float32))
+        div = 2.0 if subpixel else 1.0
+        return self.x * factor / div, self.y * factor / div
+
+
+def _to_numpy(obj):
+    return type(obj)(**{f.name: getattr(obj, f.name).detach().cpu().numpy()
+                        for f in dataclasses.fields(obj)})
+
+
+@dataclasses.dataclass
+class Matches:
+    """Fixed-capacity correspondences between two keypoint sets."""
+
+    idx_a: torch.Tensor     # (M,) int32 into set A
+    idx_b: torch.Tensor     # (M,) int32 into set B
+    distance: torch.Tensor  # (M,) float32
+    valid: torch.Tensor     # (M,) bool
+
+    def count(self) -> torch.Tensor:
+        return self.valid.to(torch.int32).sum(dim=-1)
+
+    def to_numpy(self) -> "Matches":
+        return _to_numpy(self)
+
+
+@dataclasses.dataclass
+class TwoViewEstimate:
+    """Output of two-view RANSAC geometry."""
+
+    model: torch.Tensor        # (3, 3) E/F/H matrix
+    inliers: torch.Tensor      # (M,) bool over the input matches
+    num_inliers: torch.Tensor  # () int32
+    success: torch.Tensor      # () bool
+
+    def to_numpy(self) -> "TwoViewEstimate":
+        return _to_numpy(self)

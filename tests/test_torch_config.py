@@ -10,13 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from sift_tpu.config import MatchConfig as JaxMatchConfig
+from sift_tpu.config import RansacConfig as JaxRansacConfig
 from sift_tpu.config import SiftConfig as JaxSiftConfig
 from sift_tpu.frontend.pyramid import lowe_sigma_schedule as jax_schedule
 from sift_tpu.kernels.gaussian import blur_matrix as jax_blur_matrix
 from sift_tpu.kernels.gaussian import gaussian_kernel_1d as jax_taps
 
 import sift_tpu_torch
-from sift_tpu_torch.config import SiftConfig, config_from_dict
+from sift_tpu_torch.config import (MatchConfig, RansacConfig, SiftConfig,
+                                   config_from_dict)
 from sift_tpu_torch.frontend.pyramid import lowe_sigma_schedule
 from sift_tpu_torch.frontend.sift import extract_batch
 from sift_tpu_torch.kernels.gaussian import blur_matrix, gaussian_kernel_1d
@@ -43,6 +46,26 @@ def test_config_from_dict_round_trips():
         config_from_dict({"no_such_field": 1})
 
 
+@pytest.mark.parametrize("ours,theirs", [(MatchConfig, JaxMatchConfig),
+                                         (RansacConfig, JaxRansacConfig)])
+def test_match_and_ransac_configs_match_jax(ours, theirs):
+    assert ({f.name: f.default for f in dataclasses.fields(ours)}
+            == {f.name: f.default for f in dataclasses.fields(theirs)})
+
+
+@pytest.mark.parametrize("jcfg", [
+    JaxMatchConfig(ratio=0.7, mutual=False, max_matches=8192, metric="dot",
+                   impl="pallas"),
+    JaxRansacConfig(num_hypotheses=256, inlier_threshold=3.0, refit=False),
+])
+def test_config_from_dict_builds_match_and_ransac_configs(jcfg):
+    cfg = config_from_dict(dataclasses.asdict(jcfg))
+    assert type(cfg).__name__ == type(jcfg).__name__
+    assert type(cfg).__module__ == "sift_tpu_torch.config"
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert config_from_dict(dataclasses.asdict(cfg)) == cfg
+
+
 @pytest.mark.parametrize("n,sigma", [(1, 1.6), (7, 1.2), (61, 2.0159),
                                      (600, 1.2489996), (488, 2.5398)])
 def test_blur_matrix_bit_equal(n, sigma):
@@ -60,6 +83,9 @@ def test_sigma_schedule_bit_equal(kw):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, sift_tpu_torch, sift_tpu_torch.frontend.sift\n"
+            "import sift_tpu_torch.matching, sift_tpu_torch.geometry\n"
+            "import sift_tpu_torch.cli, sift_tpu_torch.kernels.cuda.match\n"
+            "import sift_tpu_torch.io.image, sift_tpu_torch.io.viz\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'sift_tpu')\n"
             "       or m.startswith(('jax.', 'jaxlib', 'flax.', 'sift_tpu.'))]\n"
             "print(repr(bad))\n")
