@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from `sift_tpu_torch/csrc/` (one nvcc each, in
-     parallel) and print the build time;
+     parallel), print the build time, and fail if the descriptor kernel's
+     SASS (`cuobjdump -sass`) holds an atomic instruction;
   3. drive the main path once — `extract_batch` on B=8 frames of 488x600
      with the default `SiftConfig()` — with the launch counters set to 0
      just before and read just after; every kernel must have launched
@@ -14,8 +15,11 @@ Phases, each fatal on failure:
      The kernels' arguments are recorded on the way;
   4. call each kernel again on the recorded arguments and hold it against
      its plain PyTorch version on the card: gathers and refine walks must
-     be bit-identical, descriptors within `descriptor.TOLERANCE`; time
-     kernel and plain version;
+     be bit-identical, descriptors within `descriptor.TOLERANCE` and
+     bit-identical over two launches; time kernel and plain version; hold
+     the descriptor kernel against its plain version on edge cases (d =
+     16, 30, 48; K = 1 and odd counts; zero windows; orientation-bin and
+     cell edges; two identical peaks);
   5. check the output (shapes, finite values, keypoints found) and hold
      image 0 against the port's plain path on the CPU; time the batch and
      print keyframes/s;
@@ -28,7 +32,8 @@ Phases, each fatal on failure:
      and mutual), and RANSAC must recover the homography within 1 px at
      the corners with at least half the matches as inliers. Every kernel
      of the path is then held against its plain version on the recorded
-     arguments (the top-2 also on 16384x16384 random unit descriptors and
+     arguments (the descriptor also over two launches, and timed at these
+     shapes; the top-2 also on 16384x16384 random unit descriptors and
      on edge cases: ragged edges, uneven column ranges, all-invalid
      columns, exact ties), and the top-2 kernel's `Matches` against the
      dense path's; kernel, plain and dense top-2 are timed, and the path
@@ -81,6 +86,10 @@ F32_FLOP_PER_S = 67e12
 # x 3 (product, weight, add) = 24 for the non-zero votes -> 20 + 2*62.
 DESC_OPS_PER_PIXEL = 144
 OUT_DIR = "chiprun_out"
+# (K, d) of the descriptor's random edge cases: d = 16, 30 and 48 (any
+# even d = 2 * min(24, H // 2, W // 2) reaches the kernel), one keypoint,
+# and counts that are a multiple of nothing the kernel tiles by.
+DESC_EDGE_SHAPES = [(1, 16), (37, 30), (1001, 48), (1, 48), (300, 16)]
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -393,6 +402,106 @@ def top2_edge_cases(torch, mk, kernel) -> int:
     return len(cases) + 1
 
 
+def sass_atomics(lib_path) -> list:
+    """The opcodes of the atomic instructions (ATOM, ATOMS, ATOMG, RED) in
+    a built library's SASS, one per instruction. `cuobjdump` is taken from
+    the toolkit that built it, beside `nvcc`; raises Failed if it is not
+    there."""
+    import re
+    from pathlib import Path
+    from sift_tpu_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        raise Failed(f"no cuobjdump beside nvcc ({tool}): the descriptor "
+                     "kernel's SASS cannot be checked for atomics")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found = (re.search(r"\b(?:ATOMS?|ATOMG|RED)\.[A-Z0-9_.]*", ln)
+             for ln in sass.splitlines())
+    return [m.group(0) for m in found if m]
+
+
+def descriptor_edge_cases(torch, dk, kernel) -> int:
+    """The descriptor kernel against its plain version (within
+    `dk.TOLERANCE`) and against itself over two launches (bit for bit) on:
+    random windows at `DESC_EDGE_SHAPES`; all-zero windows, whose
+    histograms must be all zero; gradients along the axes with peak
+    orientations on orientation-bin edges; offsets and widths that put u
+    and v exactly on cell centres and cell edges; two identical peaks,
+    whose histograms must be equal. Returns the number of cases."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, device="cuda", generator=g)
+
+    def scal_of(oy0, ox0, inv_hw, ori0, ori1):
+        cols = [oy0, ox0, inv_hw]
+        for ori in (ori0, ori1):
+            th = ori.double() * (np.pi / 180.0)
+            cols += [torch.cos(th).float(), torch.sin(th).float(), ori / 45.0]
+        return torch.stack(cols, dim=1).float().contiguous()
+
+    def random_case(K, d):
+        wins = torch.randn((K, 2, d, d), device="cuda", generator=g) * 20.0
+        scal = scal_of(uniform(-d / 2 - 0.5, -d / 2 + 0.5, K),
+                       uniform(-d / 2 - 0.5, -d / 2 + 0.5, K),
+                       1.0 / (3.0 * uniform(1.6, 3.2, K)),
+                       uniform(0.0, 360.0, K), uniform(0.0, 360.0, K))
+        return wins, scal
+
+    cases = [random_case(K, d) for K, d in DESC_EDGE_SHAPES]
+    # All-zero windows.
+    zero = (torch.zeros((5, 2, 48, 48), device="cuda"), random_case(5, 48)[1])
+    cases.append(zero)
+    # Gradients along +x, +y, -x, -y; peaks every half bin (45 / 2 deg), so
+    # each angle minus the peak falls on a bin edge or a bin centre.
+    K, d = 64, 48
+    axis = torch.randint(0, 4, (K, d, d), device="cuda", generator=g)
+    mag = uniform(1.0, 50.0, K, d, d)
+    ux = torch.tensor([1.0, 0.0, -1.0, 0.0], device="cuda")
+    uy = torch.tensor([0.0, 1.0, 0.0, -1.0], device="cuda")
+    wins = torch.stack([mag * ux[axis], mag * uy[axis]], dim=1).contiguous()
+    half = torch.arange(K, device="cuda", dtype=torch.float32) % 16
+    off = torch.full((K,), -d / 2, device="cuda")
+    cases.append((wins, scal_of(off, off, torch.full((K,), 0.2, device="cuda"),
+                                half * 22.5, ((half + 3) % 16) * 22.5)))
+    # Peaks at multiples of 90 deg (cos, sin exact), integer offsets and
+    # power-of-two widths: u and v land exactly on cell centres (-1.5 ..
+    # 1.5) and on the grid's edges (+-2.5).
+    K = 16
+    wins = random_case(K, d)[0]
+    quarter = (torch.arange(K, device="cuda") % 4).float()
+    scal = scal_of(off[:K], off[:K],
+                   0.5 ** (2 + torch.arange(K, device="cuda") % 3).float(),
+                   quarter * 90.0, ((quarter + 1) % 4) * 90.0)
+    c = torch.tensor([1.0, 0.0, -1.0, 0.0], device="cuda")
+    s = torch.tensor([0.0, 1.0, 0.0, -1.0], device="cuda")
+    q = quarter.long()
+    scal[:, 3], scal[:, 4] = c[q], s[q]
+    scal[:, 6], scal[:, 7] = c[(q + 1) % 4], s[(q + 1) % 4]
+    cases.append((wins, scal))
+    # Two identical peaks.
+    wins, scal = random_case(50, 48)
+    scal[:, 6:9] = scal[:, 3:6]
+    cases.append((wins, scal))
+
+    for wins, scal in cases:
+        got, again = kernel(wins, scal), kernel(wins, scal)
+        want = dk.descriptor_accumulate_plain(wins, scal)
+        torch.cuda.synchronize()
+        hold_extraction_kernel(torch, dk.TOLERANCE, "descriptor_accumulate",
+                               got, want)
+        if not torch.equal(got, again):
+            raise Failed(f"descriptor kernel differs between two launches "
+                         f"at {tuple(wins.shape)}")
+    if bool(kernel(*zero).any()):
+        raise Failed("zero windows gave a non-zero histogram")
+    got = kernel(*cases[-1])
+    if not torch.equal(got[:, 0], got[:, 1]):
+        raise Failed("two identical peaks gave different histograms")
+    return len(cases)
+
+
 def row_map(m) -> dict:
     v = m.valid.cpu().numpy()
     return dict(zip(m.idx_a.cpu().numpy()[v].tolist(),
@@ -402,7 +511,8 @@ def row_map(m) -> dict:
 
 def match_phase(torch, card: str):
     """Phase 6; returns ({extraction kernel: max abs err at this path's
-    shapes}, the `streaming_top2` row of the kernels line)."""
+    shapes}, the descriptor's times and bound at these shapes, the
+    `streaming_top2` row of the kernels line)."""
     from sift_tpu_torch import SiftConfig, extract_batch
     from sift_tpu_torch.config import MatchConfig, RansacConfig
     from sift_tpu_torch.geometry.homography import ransac_homography
@@ -465,17 +575,40 @@ def match_phase(torch, card: str):
     from sift_tpu_torch.kernels.cuda import descriptor
     plain = extraction_plain()
     extraction_err = {}
+    desc = dict(ms=0.0, ms_stream=0.0, bytes=0.0, ops=0.0, device_seen=True)
     for name in list(calls):
         err = 0.0
+        kern = originals[name]
         for args in calls.pop(name):
-            got, want = originals[name](*args), plain[name](*args)
+            got, want = kern(*args), plain[name](*args)
             torch.cuda.synchronize()
             err = max(err, hold_extraction_kernel(
                 torch, descriptor.TOLERANCE, name, got, want)[0])
+            if name == "descriptor_accumulate":
+                if not torch.equal(got, kern(*args)):
+                    raise Failed("descriptor kernel differs between two "
+                                 f"launches at {tuple(args[0].shape)}")
+                dev = device_ms(torch, lambda: kern(*args), 10,
+                                "descriptor_kernel")
+                desc["device_seen"] &= dev is not None
+                desc["ms"] += dev or 0.0
+                desc["ms_stream"] += event_ms(torch, lambda: kern(*args), 10)
+                b, o = work_of(name, args)
+                desc["bytes"] += b
+                desc["ops"] += o
             del got, want
         extraction_err[name] = err
         print(f"{name} at {h}x{w}: {launches[name]} calls ok, max_abs_err "
               f"{err:.3g}", flush=True)
+    desc_bound, desc_by = bound(desc["bytes"], desc["ops"])
+    desc_large = {
+        "ms": desc["ms"] if desc["device_seen"] else desc["ms_stream"],
+        "ms_stream": desc["ms_stream"], "bound_ms": desc_bound,
+        "timing": "cupti" if desc["device_seen"] else "events"}
+    print(f"descriptor_accumulate at {h}x{w}: deterministic over two "
+          f"launches, {desc_large['ms']:.4f} ms/pair ({desc_large['timing']})"
+          f", stream {desc['ms_stream']:.4f} ms, bound {desc_bound:.4f} ms "
+          f"({desc_by}); card {card}", flush=True)
 
     # The kernel against its plain version on the recorded arguments, and
     # at the repo's large-matching size.
@@ -594,7 +727,7 @@ def match_phase(torch, card: str):
 
     bound_ms, bound_by = bound(tot["bytes"], tot["ops"])
     src, replaces = SOURCES["streaming_top2"]
-    return extraction_err, {
+    return extraction_err, desc_large, {
         "name": "streaming_top2", "route": "cuda", "source": src,
         "replaces": replaces, "launches": launches["streaming_top2"],
         "max_abs_err": tot["err"],
@@ -610,6 +743,15 @@ def match_phase(torch, card: str):
         "extract_ms": 1e3 * extract_s, "match_ms": 1e3 * match_s,
         "ransac_ms": 1e3 * ransac_s, "busy_ms": busy_ms, "wall_ms": wall_ms,
     }
+
+
+def finish(torch, card: str) -> int:
+    """Print the card line and, as the last line, the result."""
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -650,6 +792,14 @@ def main() -> int:
     paths = build.build()
     print(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    try:
+        atomics = sass_atomics(paths["descriptor"])
+    except Failed as e:
+        return fail(str(e))
+    print(f"descriptor SASS atomics: {len(atomics)} {sorted(set(atomics))}",
+          flush=True)
+    if atomics:
+        return fail("the descriptor kernel has atomic instructions")
 
     # 3. the main path, counted, with the kernels' arguments recorded
     cfg = SiftConfig()
@@ -683,6 +833,10 @@ def main() -> int:
                                               name, got, want)
             except Failed as exc:
                 return fail(str(exc))
+            if name == "descriptor_accumulate" and \
+                    not torch.equal(got, kern(*args)):
+                return fail("descriptor kernel differs between two launches "
+                            f"at {tuple(args[0].shape)}")
             err, rel = max(err, e), max(rel, r)
             reps = 20
             ms_events += event_ms(torch, lambda: kern(*args), reps)
@@ -712,6 +866,15 @@ def main() -> int:
               f"{rows[-1]['ms']:.4f} ms/batch ({rows[-1]['timing']}), stream "
               f"{ms_events:.4f} ms, plain {plain_ms:.3f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    try:
+        n_edge = descriptor_edge_cases(torch, descriptor,
+                                       originals["descriptor_accumulate"])
+    except Failed as exc:
+        return fail(str(exc))
+    print(f"descriptor_accumulate edge cases: {n_edge} ok (d = 16, 30, 48; K "
+          "= 1 and odd counts; zero windows; orientation-bin and cell edges; "
+          "two identical peaks), each bit-identical over two launches",
+          flush=True)
 
     # 5. output checks, CPU plain path on image 0, throughput
     kpn = kp.to_numpy()
@@ -761,19 +924,21 @@ def main() -> int:
 
     # 6. the matching path at full width
     try:
-        extraction_err, row = match_phase(torch, card)
+        extraction_err, desc_large, row = match_phase(torch, card)
     except Failed as e:
         return fail(str(e))
+    size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
     for r in rows:
-        r[f"max_abs_err_{MATCH_HEIGHT}x{MATCH_WIDTH}"] = extraction_err[r["name"]]
+        r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
+        if r["name"] == "descriptor_accumulate":
+            r.update({f"ms_{size}": desc_large["ms"],
+                      f"ms_stream_{size}": desc_large["ms_stream"],
+                      f"bound_ms_{size}": desc_large["bound_ms"],
+                      "deterministic": True, "sass_atomics": len(atomics)})
     rows.append(row)
 
     print(json.dumps({"kernels": rows}), flush=True)
-    print(f"card: {card}", flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return finish(torch, card)
 
 
 if __name__ == "__main__":

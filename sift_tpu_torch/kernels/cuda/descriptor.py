@@ -5,13 +5,16 @@ Replaces the TPU kernel `sift_tpu/kernels/pallas/descriptor.py::
 descriptor_accumulate_pallas`. From each keypoint's (2, d, d) gradient
 window, the raw 4x4x8 trilinear histograms for both orientation peaks,
 with the f32 arithmetic of the TPU kernel (`_desc_kernel`). The magnitude
-and angle, computed outside the TPU kernel, are fused into this one. Bound
-on the H100 by bytes (the windows are read once).
+and angle, computed outside the TPU kernel, are fused into this one.
 
-The kernel sums its votes with shared-memory atomics in an order that
-varies between runs, and its atan2f/expf are not torch's, so it agrees
-with the plain version to a tolerance (`TOLERANCE`, on the raw histogram
-relative to its largest bin), not bit for bit.
+The kernel takes no atomics: each thread votes into its own column of a
+shared [bin][thread] histogram, and each bin's columns are summed in an
+order fixed by the code, so its output is bit-identical from run to run.
+It sums in another order than the plain version, and its atan2f, sqrtf
+and expf are CUDA's approximate forms (built with `-use_fast_math`), not
+torch's; the votes are continuous in all of them, so the two agree to a
+tolerance (`TOLERANCE`, on the raw histogram relative to its largest bin),
+not bit for bit.
 
 On a CUDA tensor `descriptor_accumulate` launches the kernel (or raises);
 on a CPU tensor it runs `descriptor_accumulate_plain`.
@@ -28,6 +31,7 @@ from sift_tpu_torch.kernels import build
 
 N_PEAKS = 2
 N_SCAL = 9          # oy0, ox0, 1/hist_width, then (cos, sin, ori/45) per peak
+D_MAX = 48          # the kernel's largest window (2 * R_DESC of the frontend)
 TOLERANCE = 1e-4    # max |kernel - plain| / max |plain| on raw histograms
 _CHUNK = 512        # keypoints per plain-version pass (bounds memory)
 LAUNCHES = 0
@@ -101,9 +105,9 @@ def descriptor_accumulate(wins: torch.Tensor,
     global LAUNCHES
     K, C, d, d2 = wins.shape
     if (wins.dtype != torch.float32 or C != 2 or d != d2
-            or not wins.is_contiguous()):
+            or not 1 <= d <= D_MAX or not wins.is_contiguous()):
         raise ValueError("descriptor_accumulate: wins must be contiguous "
-                         "(K, 2, d, d) float32")
+                         f"(K, 2, d, d) float32 with d <= {D_MAX}")
     if (scal.device != wins.device or scal.dtype != torch.float32
             or scal.shape != (K, N_SCAL) or not scal.is_contiguous()):
         raise ValueError("descriptor_accumulate: scal must be a contiguous "
