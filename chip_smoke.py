@@ -11,15 +11,20 @@ Phases, each fatal on failure:
   3. drive the main path once — `extract_batch` on B=8 frames of 488x600
      with the default `SiftConfig()` — with the launch counters set to 0
      just before and read just after; every kernel must have launched
-     (8 window gathers, 4 refine walks, 4 descriptor passes per batch).
-     The kernels' arguments are recorded on the way;
+     (4 window gathers of the gradient maps, 4 refine walks that read the
+     DoG stack themselves, 4 descriptor passes per batch). The kernels'
+     arguments are recorded on the way;
   4. call each kernel again on the recorded arguments and hold it against
      its plain PyTorch version on the card: gathers and refine walks must
      be bit-identical, descriptors within `descriptor.TOLERANCE` and
      bit-identical over two launches; time kernel and plain version; hold
-     the descriptor kernel against its plain version on edge cases (d =
-     16, 30, 48; K = 1 and odd counts; zero windows; orientation-bin and
-     cell edges; two identical peaks);
+     the window gather on the recorded f32 DoG stacks at d = 16 (the
+     main path now gathers only bf16 maps); hold the refine kernel
+     against its plain version, bit for bit, on edge cases (L = 3, 4, 7
+     and 15, so both block sizes and a staged window of levels; octaves
+     under 16 px; all borders); hold the descriptor kernel against its
+     plain version on edge cases (d = 16, 30, 48; K = 1 and odd counts;
+     zero windows; orientation-bin and cell edges; two identical peaks);
   5. check the output (shapes, finite values, keypoints found) and hold
      image 0 against the port's plain path on the CPU; time the batch and
      print keyframes/s;
@@ -32,13 +37,14 @@ Phases, each fatal on failure:
      and mutual), and RANSAC must recover the homography within 1 px at
      the corners with at least half the matches as inliers. Every kernel
      of the path is then held against its plain version on the recorded
-     arguments (the descriptor also over two launches, and timed at these
-     shapes; the top-2 also on 16384x16384 random unit descriptors and
-     on edge cases: ragged edges, uneven column ranges, all-invalid
-     columns, exact ties), and the top-2 kernel's `Matches` against the
-     dense path's; kernel, plain and dense top-2 are timed, and the path
-     end to end (pairs/s, and one profiled pair whose operator table goes
-     to `chiprun_out/chip_smoke_match_profile.txt`).
+     arguments (the descriptor also over two launches; descriptor and
+     refine walk timed at these shapes; the top-2 also on 16384x16384
+     random unit descriptors and on edge cases: ragged edges, uneven
+     column ranges, all-invalid columns, exact ties), and the top-2
+     kernel's `Matches` against the dense path's; kernel, plain and
+     dense top-2 are timed, and the path end to end (pairs/s, and one
+     profiled pair whose operator table goes to
+     `chiprun_out/chip_smoke_match_profile.txt`).
 Then it prints one `kernels` JSON line, the card line, and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
@@ -57,13 +63,13 @@ import time
 import numpy as np
 
 BATCH, HEIGHT, WIDTH = 8, 488, 600
-EXPECTED_LAUNCHES = {"gather_windows": 8, "refine_walk": 4,
+EXPECTED_LAUNCHES = {"gather_windows": 4, "refine_walk": 4,
                      "descriptor_accumulate": 4, "streaming_top2": 0}
 # Phase 6: COLMAP's SiftExtractionOptions (max_image_size=3200,
 # max_num_features=8192) and SiftMatchingOptions (max_ratio=0.8,
 # cross_check=true); the repo's large-matching size (16384 x 128).
 MATCH_HEIGHT, MATCH_WIDTH, MATCH_FEATURES = 2400, 3200, 8192
-MATCH_LAUNCHES = {"gather_windows": 8, "refine_walk": 4,
+MATCH_LAUNCHES = {"gather_windows": 4, "refine_walk": 4,
                   "descriptor_accumulate": 4, "streaming_top2": 2}
 LARGE_N = 16384
 SOURCES = {
@@ -76,6 +82,9 @@ SOURCES = {
     "streaming_top2": ("sift_tpu_torch/csrc/match.cu",
                        "sift_tpu/kernels/pallas/match.py:106"),
 }
+KERNEL_SYMBOLS = {"gather_windows": "gather_windows_kernel",
+                  "refine_walk": "refine_walk_kernel",
+                  "descriptor_accumulate": "descriptor_kernel"}
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32
 # (non-tensor-core) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -90,6 +99,12 @@ OUT_DIR = "chiprun_out"
 # even d = 2 * min(24, H // 2, W // 2) reaches the kernel), one keypoint,
 # and counts that are a multiple of nothing the kernel tiles by.
 DESC_EDGE_SHAPES = [(1, 16), (37, 30), (1001, 48), (1, 48), (300, 16)]
+# (B, L, H, W) of the refine walk's edge cases: levels that move (L > 3),
+# 32 keypoints a block (L <= 6) and 16 (L >= 7), a window of 13 staged
+# levels out of 15, octaves under 16 px. 97 keypoints an image fill no
+# block evenly.
+REFINE_EDGE_SHAPES = [(3, 4, 40, 48), (2, 7, 36, 30), (3, 15, 24, 20),
+                      (3, 3, 12, 10), (1, 7, 9, 20)]
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -225,6 +240,56 @@ def bound(nbytes: float, nops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def covered_cells(dogs, x, y) -> int:
+    """DoG cells, all levels, that at least one keypoint's 16x16 patch of
+    the refine walk covers: the patch corners box-dilated by 16 toward the
+    bottom right, clipped to the image. What the kernel stages, printed
+    beside what the walks read (`walk_cells`)."""
+    import torch
+    import torch.nn.functional as F
+    from sift_tpu_torch.kernels.cuda.refine import D, patch_corners
+    B, L, H, W = dogs.shape
+    _, _, x0, y0 = patch_corners(x, y, H, W)
+    corners = torch.zeros((B, 1, H, W), device=dogs.device)
+    img = torch.arange(B, device=dogs.device)[:, None].expand_as(x0)
+    corners[img, 0, y0.long(), x0.long()] = 1.0
+    cover = F.max_pool2d(F.pad(corners, (D - 1, 0, D - 1, 0)), D, stride=1)
+    return int(cover.sum()) * L
+
+
+def walk_cells(dogs, x, y, level) -> int:
+    """DoG cells that the refine walks read, each counted once: the plain
+    walk (`refine._walk`) runs with a lookup that records the flat index of
+    every tap it reads inside the image (taps past the image's edge read
+    0, not memory)."""
+    import torch
+    from sift_tpu_torch.kernels.cuda import refine as rk
+    B, L, H, W = dogs.shape
+    _, _, x0, y0 = (t.reshape(-1, 1, 1, 1).long()
+                    for t in rk.patch_corners(x, y, H, W))
+    img = torch.arange(B, device=dogs.device).repeat_interleave(
+        x.shape[1]).reshape(-1, 1, 1, 1)
+    read = []
+    walk = rk._walk
+
+    def recording_walk(lookup, *args):
+        def recorded(li, ly, lx):
+            s, cell, inside = rk._cells(li, ly, lx)
+            yy, xx = y0 + cell // rk.D, x0 + cell % rk.D
+            ok = inside & (yy < H) & (xx < W)
+            idx = ((img * L + s) * H + yy) * W + xx
+            read.append(idx.expand_as(ok)[ok])
+            return lookup(li, ly, lx)
+        return walk(recorded, *args)
+
+    rk._walk = recording_walk
+    try:
+        rk.refine_walk_plain(dogs, x, y, level)
+    finally:
+        rk._walk = walk
+    return int(torch.unique(torch.cat(read)).numel())
+
+
 def work_of(name: str, args) -> tuple[float, float]:
     """(bytes, f32 ops) that one call must move and do on these inputs."""
     if name == "gather_windows":
@@ -232,9 +297,8 @@ def work_of(name: str, args) -> tuple[float, float]:
         K, C = gl.shape[0], maps.shape[0]
         return K * C * d * d * (maps.element_size() + 4) + K * 12, 0.0
     if name == "refine_walk":
-        patches, start = args
-        K, L = patches.shape[:2]
-        return K * (L * 256 * 4 + 32) + K * (27 * 4 + 16), K * 6 * 150.0
+        N = args[1].numel()
+        return walk_cells(*args) * 4 + N * (12 + 27 * 4 + 16), N * 6 * 150.0
     if name == "streaming_top2":
         a, _, b, _ = args
         (Na, D), Nb = a.shape, b.shape[0]
@@ -502,6 +566,63 @@ def descriptor_edge_cases(torch, dk, kernel) -> int:
     return len(cases)
 
 
+def hold_dog_gathers(torch, kern, refine_calls) -> int:
+    """The window gather at d = 16 on the recorded f32 DoG stacks of the
+    refine walk's calls, at its patch corners (images as the gather's level
+    axis, as the walk was once fed), against its plain version, bit for
+    bit. The main path gathers only bf16 maps, so this keeps the kernel's
+    f32 branch held. Returns the number of windows."""
+    from sift_tpu_torch.kernels.cuda import windows
+    from sift_tpu_torch.kernels.cuda.refine import D, patch_corners
+    n = 0
+    for dogs, x, y, _ in refine_calls:
+        B, _, H, W = dogs.shape
+        _, _, x0, y0 = (t.reshape(-1) for t in patch_corners(x, y, H, W))
+        gl = torch.arange(B, dtype=torch.int32, device=dogs.device
+                          ).repeat_interleave(x.shape[1])
+        args = (dogs.transpose(0, 1), gl, y0, x0, D)
+        if not torch.equal(kern(*args), windows.gather_windows_plain(*args)):
+            raise Failed(f"gather_windows f32 d={D} differs from plain on a "
+                         f"DoG stack {tuple(dogs.shape)}")
+        n += gl.numel()
+    return n
+
+
+def refine_edge_cases(torch, rk, kernel) -> int:
+    """The refine kernel against its plain version, bit for bit, on smooth
+    random DoG stacks at `REFINE_EDGE_SHAPES`: 97 candidates an image at
+    any level of [1, L-2], a third of them on the four borders, four on
+    the corners, some at fractional positions. Returns the number of
+    cases."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(11)
+    K = 97
+    for B, L, H, W in REFINE_EDGE_SHAPES:
+        noise = torch.randn((B * L, 1, H, W), device="cuda", generator=g)
+        dogs = (F.avg_pool2d(noise, 3, stride=1, padding=1) * 40.0
+                ).reshape(B, L, H, W).contiguous()
+        x = torch.randint(0, W, (B, K), device="cuda", generator=g).float()
+        y = torch.randint(0, H, (B, K), device="cuda", generator=g).float()
+        side = torch.randint(0, 4, (B, K // 3), device="cuda", generator=g)
+        x[:, :K // 3] = torch.where(side == 0, 0.0, torch.where(
+            side == 1, W - 1.0, x[:, :K // 3]))
+        y[:, :K // 3] = torch.where(side == 2, 0.0, torch.where(
+            side == 3, H - 1.0, y[:, :K // 3]))
+        x[:, -4:] = torch.tensor([0.0, W - 1.0, 0.0, W - 1.0], device="cuda")
+        y[:, -4:] = torch.tensor([0.0, 0.0, H - 1.0, H - 1.0], device="cuda")
+        x[:, K // 3:K // 2] += 0.99 * torch.rand(
+            (B, K // 2 - K // 3), device="cuda", generator=g)
+        level = torch.randint(1, L - 1, (B, K), device="cuda", generator=g,
+                              dtype=torch.int32)
+        args = (dogs, x, y, level)
+        got, want = kernel(*args), rk.refine_walk_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise Failed(f"refine_walk differs from plain on a DoG stack "
+                         f"{(B, L, H, W)}")
+    return len(REFINE_EDGE_SHAPES)
+
+
 def row_map(m) -> dict:
     v = m.valid.cpu().numpy()
     return dict(zip(m.idx_a.cpu().numpy()[v].tolist(),
@@ -511,8 +632,8 @@ def row_map(m) -> dict:
 
 def match_phase(torch, card: str):
     """Phase 6; returns ({extraction kernel: max abs err at this path's
-    shapes}, the descriptor's times and bound at these shapes, the
-    `streaming_top2` row of the kernels line)."""
+    shapes}, {"refine_walk" and "descriptor_accumulate": times and bound at
+    these shapes}, the `streaming_top2` row of the kernels line)."""
     from sift_tpu_torch import SiftConfig, extract_batch
     from sift_tpu_torch.config import MatchConfig, RansacConfig
     from sift_tpu_torch.geometry.homography import ransac_homography
@@ -575,7 +696,9 @@ def match_phase(torch, card: str):
     from sift_tpu_torch.kernels.cuda import descriptor
     plain = extraction_plain()
     extraction_err = {}
-    desc = dict(ms=0.0, ms_stream=0.0, bytes=0.0, ops=0.0, device_seen=True)
+    timed = {name: dict(ms=0.0, ms_stream=0.0, bytes=0.0, ops=0.0, cells=0,
+                        reads=0, device_seen=True)
+             for name in ("refine_walk", "descriptor_accumulate")}
     for name in list(calls):
         err = 0.0
         kern = originals[name]
@@ -584,31 +707,43 @@ def match_phase(torch, card: str):
             torch.cuda.synchronize()
             err = max(err, hold_extraction_kernel(
                 torch, descriptor.TOLERANCE, name, got, want)[0])
-            if name == "descriptor_accumulate":
-                if not torch.equal(got, kern(*args)):
-                    raise Failed("descriptor kernel differs between two "
-                                 f"launches at {tuple(args[0].shape)}")
+            if name == "descriptor_accumulate" and \
+                    not torch.equal(got, kern(*args)):
+                raise Failed("descriptor kernel differs between two "
+                             f"launches at {tuple(args[0].shape)}")
+            if name in timed:
+                t = timed[name]
                 dev = device_ms(torch, lambda: kern(*args), 10,
-                                "descriptor_kernel")
-                desc["device_seen"] &= dev is not None
-                desc["ms"] += dev or 0.0
-                desc["ms_stream"] += event_ms(torch, lambda: kern(*args), 10)
+                                KERNEL_SYMBOLS[name])
+                t["device_seen"] &= dev is not None
+                t["ms"] += dev or 0.0
+                t["ms_stream"] += event_ms(torch, lambda: kern(*args), 10)
                 b, o = work_of(name, args)
-                desc["bytes"] += b
-                desc["ops"] += o
+                t["bytes"] += b
+                t["ops"] += o
+                if name == "refine_walk":
+                    t["cells"] += covered_cells(*args[:3])
+                    t["reads"] += walk_cells(*args)
             del got, want
         extraction_err[name] = err
         print(f"{name} at {h}x{w}: {launches[name]} calls ok, max_abs_err "
               f"{err:.3g}", flush=True)
-    desc_bound, desc_by = bound(desc["bytes"], desc["ops"])
-    desc_large = {
-        "ms": desc["ms"] if desc["device_seen"] else desc["ms_stream"],
-        "ms_stream": desc["ms_stream"], "bound_ms": desc_bound,
-        "timing": "cupti" if desc["device_seen"] else "events"}
-    print(f"descriptor_accumulate at {h}x{w}: deterministic over two "
-          f"launches, {desc_large['ms']:.4f} ms/pair ({desc_large['timing']})"
-          f", stream {desc['ms_stream']:.4f} ms, bound {desc_bound:.4f} ms "
-          f"({desc_by}); card {card}", flush=True)
+    at_size = {}
+    for name, t in timed.items():
+        bms, by = bound(t["bytes"], t["ops"])
+        at_size[name] = {
+            "ms": t["ms"] if t["device_seen"] else t["ms_stream"],
+            "ms_stream": t["ms_stream"], "bound_ms": bms,
+            "timing": "cupti" if t["device_seen"] else "events"}
+        note = "deterministic over two launches"
+        if name == "refine_walk":
+            at_size[name].update(walk_cells=t["reads"],
+                                 covered_cells=t["cells"])
+            note = (f"{t['reads']} DoG cells read by the walks, "
+                    f"{t['cells']} covered by the patches")
+        print(f"{name} at {h}x{w}: {note}, {at_size[name]['ms']:.4f} ms/pair "
+              f"({at_size[name]['timing']}), stream {t['ms_stream']:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}); card {card}", flush=True)
 
     # The kernel against its plain version on the recorded arguments, and
     # at the repo's large-matching size.
@@ -727,7 +862,7 @@ def match_phase(torch, card: str):
 
     bound_ms, bound_by = bound(tot["bytes"], tot["ops"])
     src, replaces = SOURCES["streaming_top2"]
-    return extraction_err, desc_large, {
+    return extraction_err, at_size, {
         "name": "streaming_top2", "route": "cuda", "source": src,
         "replaces": replaces, "launches": launches["streaming_top2"],
         "max_abs_err": tot["err"],
@@ -816,14 +951,12 @@ def main() -> int:
 
     # 4. each kernel against its plain version, on the recorded arguments
     plain = extraction_plain()
-    kernel_symbol = {"gather_windows": "gather_windows_kernel",
-                     "refine_walk": "refine_walk_kernel",
-                     "descriptor_accumulate": "descriptor_kernel"}
     rows = []
     for name, calls in recorded.items():
         kern = originals[name]
         err = rel = 0.0
         ms = ms_events = plain_ms = bytes_total = ops_total = 0.0
+        cells = reads = 0
         device_seen = True
         for args in calls:
             got, want = kern(*args), plain[name](*args)
@@ -841,7 +974,7 @@ def main() -> int:
             reps = 20
             ms_events += event_ms(torch, lambda: kern(*args), reps)
             dev = device_ms(torch, lambda: kern(*args), reps,
-                            kernel_symbol[name])
+                            KERNEL_SYMBOLS[name])
             if dev is None:
                 device_seen = False
             else:
@@ -850,6 +983,9 @@ def main() -> int:
             b, o = work_of(name, args)
             bytes_total += b
             ops_total += o
+            if name == "refine_walk":
+                cells += covered_cells(*args[:3])
+                reads += walk_cells(*args)
         bound_ms, bound_by = bound(bytes_total, ops_total)
         src, replaces = SOURCES[name]
         rows.append({
@@ -861,11 +997,29 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
+        if name == "refine_walk":
+            rows[-1].update(walk_cells=reads, covered_cells=cells)
         print(f"{name}: {len(calls)} calls ok, max_abs_err {err:.3g} "
               f"(relative to the largest output {rel:.3g}), "
               f"{rows[-1]['ms']:.4f} ms/batch ({rows[-1]['timing']}), stream "
               f"{ms_events:.4f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"{bound_ms:.4f} ms ({bound_by})"
+              + (f"; {reads} DoG cells read by the walks, {cells} covered "
+                 "by the patches" if cells else ""), flush=True)
+    try:
+        n_win = hold_dog_gathers(torch, originals["gather_windows"],
+                                 recorded["refine_walk"])
+    except Failed as exc:
+        return fail(str(exc))
+    print(f"gather_windows f32 d=16 on the recorded DoG stacks: {n_win} "
+          "windows bit-identical to plain", flush=True)
+    from sift_tpu_torch.kernels.cuda import refine
+    try:
+        n_edge = refine_edge_cases(torch, refine, originals["refine_walk"])
+    except Failed as exc:
+        return fail(str(exc))
+    print(f"refine_walk edge cases: {n_edge} ok (L = 3, 4, 7, 15; octaves "
+          "under 16 px; all borders), bit-identical to plain", flush=True)
     try:
         n_edge = descriptor_edge_cases(torch, descriptor,
                                        originals["descriptor_accumulate"])
@@ -924,19 +1078,22 @@ def main() -> int:
 
     # 6. the matching path at full width
     try:
-        extraction_err, desc_large, row = match_phase(torch, card)
+        extraction_err, at_size, row = match_phase(torch, card)
     except Failed as e:
         return fail(str(e))
     size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
     for r in rows:
         r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
+        if r["name"] in at_size:
+            t = at_size[r["name"]]
+            r.update({f"ms_{size}": t["ms"],
+                      f"ms_stream_{size}": t["ms_stream"],
+                      f"bound_ms_{size}": t["bound_ms"]})
+            r.update({f"{k}_{size}": t[k]
+                      for k in ("walk_cells", "covered_cells") if k in t})
         if r["name"] == "descriptor_accumulate":
-            r.update({f"ms_{size}": desc_large["ms"],
-                      f"ms_stream_{size}": desc_large["ms_stream"],
-                      f"bound_ms_{size}": desc_large["bound_ms"],
-                      "deterministic": True, "sass_atomics": len(atomics)})
+            r.update({"deterministic": True, "sass_atomics": len(atomics)})
     rows.append(row)
-
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)
 

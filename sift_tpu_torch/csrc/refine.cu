@@ -1,41 +1,83 @@
-// Keypoint refinement walk over pre-gathered DoG patches (sm_90a).
+// Keypoint refinement walk read straight from the DoG stack (sm_90a).
 //
 // Replaces the TPU kernel sift_tpu/kernels/pallas/refine.py
-// (refine_walk_pallas, body _refine_kernel). Per keypoint: five steps of
-// the Lowe Taylor walk on its (L, 16, 16) patch — 27 stencil taps,
-// gradient and Hessian, adjugate 3x3 solve, step = clip(rint(off), -1, 1)
-// unless |off| < 0.5 on every axis, positions clipped to the image
-// interior — then the final 27-value cube and the walk state.
+// (refine_walk_pallas, body _refine_kernel), and absorbs the refine use of
+// sift_tpu/kernels/pallas/windows.py (gather_windows_pallas at d = 16),
+// which first copied every keypoint's (L, 16, 16) DoG patch to device
+// memory for the walk to read back. Per keypoint: the patch corner
+// (x0, y0) = clamp(position - 8, 0, size - 16), five steps of the Lowe
+// Taylor walk on the patch — 27 stencil taps, gradient and Hessian,
+// adjugate 3x3 solve, step = clip(rint(off), -1, 1) unless |off| < 0.5 on
+// every axis, positions clipped to the image interior, the level to
+// [1, L-2] — then the final 27-value cube and the walk state.
 //
-// The arithmetic is the plain walk's (frontend/refine.py) term for term,
-// in the same order, and this file is compiled with -fmad=false so that
-// no product is fused into a sum: a different rounding moves a keypoint.
-// rintf rounds half to even as the plain walk does; the division is IEEE.
+// The arithmetic is the plain walk's (kernels/cuda/refine.py) term for
+// term, in the same order, and this file is compiled with -fmad=false so
+// that no product is fused into a sum: a different rounding moves a
+// keypoint. rintf rounds half to even as the plain walk does; the
+// division is IEEE.
 //
-// Bound on the H100: bytes, and far below either bound in practice —
-// the work is a few hundred flops per keypoint. One thread per keypoint;
-// the taps are read straight from the patch in device memory (cached in
-// L1), so only the final cube and state are written.
+// A tap is the patch's flat cell c = y*16 + x: outside [0, 256) it reads
+// 0, inside it reads cell (c >> 4, c & 15), so a step to column -1 or 16
+// wraps to the neighbouring row, as the JAX walk's flat one-hot lookup
+// does. The padding slots of the candidate buffer (level 1, image row 0)
+// reach it. Staging the whole 16x16 patch keeps that rule for free.
+//
+// Bound on the H100: bytes — the DoG cells the walks read, read once, and
+// 12 B in and 124 B out per keypoint; the walk is a few hundred flops per
+// keypoint. What holds it back is latency: the walk is six dependent
+// rounds of 27 reads and a solve with IEEE divisions, and a block has few
+// keypoints to overlap. So a block of 128 threads stages the whole
+// patches of G keypoints in shared memory first, and one warp then walks
+// them there: the dependent rounds wait on shared memory, not on device
+// memory. Staging is latency-bound too, so each thread issues the loads
+// of one level for all G keypoints (2G 4-byte loads, 16 neighbouring
+// threads on one 64-byte patch row; rows are not 16-byte aligned) before
+// it stores any; a pixel past the image's bottom or right edge is stored
+// as 0. The layout is keypoint-minor with a stride of G + 1 words per
+// patch cell, so that the two rows of a warp's stores fall in 32 distinct
+// banks; the walk's reads hit distinct banks where the warp's keypoints
+// sit on the same cell, and spread over the banks otherwise. 4-byte
+// cp.async copies into this layout, and loads issued 8 keypoints at a
+// time, were slower on the H100 (PERF.md).
+//
+// A walk moves at most one level a step, so it reads only the 13 levels
+// around its start (REACH = 6 on either side); a block stages
+// S = min(L, 13) levels per keypoint, from lo = clamp(level - 6, 0,
+// L - S). G = 32 keypoints a block while S * 33 KB fits a block's shared
+// memory (L <= 6), else G = 16 (S * 17 KB, at most 221 KB): every L runs.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int D = 16;
+constexpr int R = D / 2;
 constexpr int CELLS = D * D;
 constexpr int N_ITERS = 5;
+constexpr int REACH = N_ITERS + 1;         // levels a walk reads each side
+constexpr int MAX_STAGED = 2 * REACH + 1;  // levels staged per keypoint
+constexpr int THREADS = 128;
+constexpr int RSTEP = THREADS / D;   // patch rows staged at once
+constexpr int SMEM_LIMIT = 227 * 1024;     // shared memory of a block
 
-// A tap is addressed by its flat in-level index (y*16 + x); one outside
-// [0, 256) reads 0, as the plain walk's lookup does (only the padding
-// slots of the candidate buffer, at pixel (0, 0), reach it).
-__device__ __forceinline__ void taps(const float* __restrict__ patch, int li,
-                                     int ly, int lx, float v[27]) {
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// The 27 taps around patch-local (li, ly, lx) in (s, dy, dx) order, li
+// counted from the first staged level. `patch` is the keypoint's column:
+// staged level l, cell c at patch[(l*CELLS + c) * GP].
+template <int GP>
+__device__ __forceinline__ void taps(const float* patch, int li, int ly,
+                                     int lx, float v[27]) {
   for (int s = 0; s < 3; ++s) {
-    const float* lvl = patch + (li - 1 + s) * CELLS;
+    const float* lvl = patch + (li - 1 + s) * CELLS * GP;
     for (int dy = 0; dy < 3; ++dy) {
       for (int dx = 0; dx < 3; ++dx) {
         const int cell = (ly + dy - 1) * D + (lx + dx - 1);
-        v[s * 9 + dy * 3 + dx] = (cell >= 0 && cell < CELLS) ? lvl[cell] : 0.0f;
+        v[s * 9 + dy * 3 + dx] =
+            (cell >= 0 && cell < CELLS) ? lvl[cell * GP] : 0.0f;
       }
     }
   }
@@ -86,25 +128,75 @@ __device__ __forceinline__ int step_of(float o) {
   return static_cast<int>(fminf(fmaxf(rintf(o), -1.0f), 1.0f));
 }
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
+// G keypoints a block, warp 0 walks them; S staged levels per keypoint.
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+refine_walk_kernel(const float* __restrict__ dogs,
+                   const float* __restrict__ xs, const float* __restrict__ ys,
+                   const int* __restrict__ level, int N, int K, int L, int S,
+                   int H, int W, float* __restrict__ cube,
+                   int* __restrict__ walk) {
+  constexpr int GP = G + 1;             // shared-memory words per patch cell
+  extern __shared__ float patch[];      // [S][CELLS][GP]
+  __shared__ long long src_off[G];      // dogs offset of (b, lo, y0, x0)
+  __shared__ int src_rows[G];           // patch rows inside the image
+  __shared__ int src_cols[G];           // patch columns inside the image
 
-__global__ void refine_walk_kernel(const float* __restrict__ patches,
-                                   const int* __restrict__ start, int K, int L,
-                                   float* __restrict__ cube,
-                                   int* __restrict__ walk) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const float* patch = patches + static_cast<long long>(k) * L * CELLS;
-  const int* st = start + k * 8;
-  int lx = st[0], ly = st[1], li = st[2];
-  const int lxmin = st[3], lxmax = st[4], lymin = st[5], lymax = st[6];
+  const int t = threadIdx.x;
+  const int n = blockIdx.x * G + t;     // this thread's keypoint, if t < G
+  int x0 = 0, y0 = 0, lx = 0, ly = 0, li = 1, lo = 0;
+  if (t < G) {
+    long long off = 0;
+    int rows = 0, cols = 0;             // 0: no keypoint, nothing staged
+    if (n < N) {
+      const int xi0 = static_cast<int>(xs[n]);
+      const int yi0 = static_cast<int>(ys[n]);
+      x0 = clampi(xi0 - R, 0, max(W - D, 0));
+      y0 = clampi(yi0 - R, 0, max(H - D, 0));
+      lx = xi0 - x0;
+      ly = yi0 - y0;
+      li = level[n];
+      lo = clampi(li - REACH, 0, L - S);
+      const long long b = n / K;
+      off = ((b * L + lo) * H + y0) * W + x0;
+      rows = min(D, H - y0);
+      cols = min(D, W - x0);
+    }
+    src_off[t] = off;
+    src_rows[t] = rows;
+    src_cols[t] = cols;
+  }
+  __syncthreads();
+
+  // Stage: thread t copies column t % 16 of patch rows t / 16 + k * RSTEP.
+  const int col = t % D;
+  const long long plane = static_cast<long long>(H) * W;
+  for (int l = 0; l < S; ++l) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float* src = dogs + src_off[g] + l * plane + col;
+      const bool col_in = col < src_cols[g];
+      const int rows = src_rows[g];
+#pragma unroll
+      for (int k = 0; k < D / RSTEP; ++k) {
+        const int r = t / D + k * RSTEP;
+        patch[(l * CELLS + r * D + col) * GP + g] =
+            (col_in && r < rows) ? src[static_cast<long long>(r) * W] : 0.0f;
+      }
+    }
+  }
+  __syncthreads();
+  if (t >= G || n >= N) return;
+
+  // Walk: one thread per keypoint, from shared memory.
+  const float* mine = patch + t;
+  const int lxmin = 1 - x0, lxmax = (W - 2) - x0;
+  const int lymin = 1 - y0, lymax = (H - 2) - y0;
   bool converged = false;
   float v[27];
   float off[3];
   for (int it = 0; it < N_ITERS; ++it) {
-    taps(patch, li, ly, lx, v);
+    taps<GP>(mine, li - lo, ly, lx, v);
     const bool ok = solve_step(v, off);
     if (!ok) { off[0] = 0.0f; off[1] = 0.0f; off[2] = 0.0f; }
     const bool small = fabsf(off[0]) < 0.5f && fabsf(off[1]) < 0.5f &&
@@ -115,24 +207,53 @@ __global__ void refine_walk_kernel(const float* __restrict__ patches,
     li = clampi(li + (move ? step_of(off[2]) : 0), 1, L - 2);
     converged = converged || small;
   }
-  taps(patch, li, ly, lx, v);
-  float* out = cube + static_cast<long long>(k) * 27;
-  for (int t = 0; t < 27; ++t) out[t] = v[t];
-  int* w = walk + k * 4;
-  w[0] = lx; w[1] = ly; w[2] = li; w[3] = converged ? 1 : 0;
+  taps<GP>(mine, li - lo, ly, lx, v);
+  float* out = cube + static_cast<long long>(n) * 27;
+  for (int i = 0; i < 27; ++i) out[i] = v[i];
+  int* w = walk + static_cast<long long>(n) * 4;
+  w[0] = x0 + lx; w[1] = y0 + ly; w[2] = li; w[3] = converged ? 1 : 0;
 }
+
+template <int G>
+int smem_of(int S) {
+  return S * CELLS * (G + 1) * static_cast<int>(sizeof(float));
+}
+
+template <int G>
+int launch(const float* dogs, const float* xs, const float* ys,
+           const int* level, int N, int K, int L, int S, int H, int W,
+           float* cube, int* walk, cudaStream_t stream) {
+  const int smem = smem_of<G>(S);
+  cudaError_t err = cudaFuncSetAttribute(
+      refine_walk_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (N + G - 1) / G;
+  refine_walk_kernel<G><<<blocks, THREADS, smem, stream>>>(
+      dogs, xs, ys, level, N, K, L, S, H, W, cube, walk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// At G = 16, 16 x 16 B of static and 13 x 17 KB of dynamic shared memory
+// fit a block.
+static_assert(MAX_STAGED * CELLS * 17 * 4 + 16 * 16 <= SMEM_LIMIT,
+              "G = 16 must fit every L");
 
 }  // namespace
 
-// patches: (K, L, 16, 16) f32. start: (K, 8) int32 rows
-// (lx, ly, li, lxmin, lxmax, lymin, lymax, unused), patch-local.
-// cube: (K, 27) f32 in (s, dy, dx) order. walk: (K, 4) int32
-// (lx, ly, li, converged). Returns cudaGetLastError() after the launch.
-extern "C" int sift_refine_walk(const float* patches, const int* start, int K,
-                                int L, float* cube, int* walk, void* stream) {
-  const int threads = 128;
-  const int blocks = (K + threads - 1) / threads;
-  refine_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      patches, start, K, L, cube, walk);
-  return static_cast<int>(cudaGetLastError());
+// dogs: (B, L, H, W) f32, contiguous, L >= 3. xs, ys: (B, K) f32 pixel
+// positions (>= 0); level: (B, K) int32 in [1, L-2]; N = B*K. cube: (B, K,
+// 27) f32 in (s, dy, dx) order. walk: (B, K, 4) int32 rows (x, y, level,
+// converged) in image coordinates. A block takes S * 33 KB (G = 32) or
+// S * 17 KB (G = 16) of dynamic shared memory, S = min(L, 13). Returns the
+// first CUDA error of the set-up or the launch.
+extern "C" int sift_refine_walk(const float* dogs, const float* xs,
+                                const float* ys, const int* level, int N,
+                                int K, int L, int H, int W, float* cube,
+                                int* walk, void* stream) {
+  const int S = min(L, MAX_STAGED);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smem_of<32>(S) + 32 * 16 <= SMEM_LIMIT)
+    return launch<32>(dogs, xs, ys, level, N, K, L, S, H, W, cube, walk, st);
+  return launch<16>(dogs, xs, ys, level, N, K, L, S, H, W, cube, walk, st);
 }

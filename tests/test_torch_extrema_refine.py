@@ -27,7 +27,7 @@ from sift_tpu.kernels.pallas.refine import refine_walk_pallas
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.frontend.extrema import detect_extrema_octave as port_detect
 from sift_tpu_torch.frontend.refine import refine_octave_lowe
-from sift_tpu_torch.kernels.cuda.refine import refine_walk_plain
+from sift_tpu_torch.kernels.cuda.refine import refine_walk_patches_plain
 
 
 # Compiled once per shape: far quicker than op-by-op dispatch here.
@@ -142,8 +142,8 @@ def test_plain_walk_matches_pallas_walk(seed):
     start = np.stack([xi - x0, yi - y0, np.ones(K, int), 1 - x0,
                       (W - 2) - x0, 1 - y0, (W - 2) - y0,
                       np.zeros(K, int)], axis=1).astype(np.int32)
-    cube, walk = refine_walk_plain(torch.from_numpy(patches),
-                                   torch.from_numpy(start))
+    cube, walk = refine_walk_patches_plain(torch.from_numpy(patches),
+                                           torch.from_numpy(start))
     Kp = 128
     patchT = np.zeros((3 * 256, Kp), np.float32)
     patchT[:, :K] = patches.reshape(K, -1).T
