@@ -26,8 +26,9 @@ Phases, each fatal on failure:
      plain version on edge cases (d = 16, 30, 48; K = 1 and odd counts;
      zero windows; orientation-bin and cell edges; two identical peaks);
   5. check the output (shapes, finite values, keypoints found) and hold
-     image 0 against the port's plain path on the CPU; time the batch and
-     print keyframes/s;
+     image 0 against the port's plain path on the CPU; count the host
+     syncs of a warm batch under `torch.cuda.set_sync_debug_mode("warn")`
+     and fail on any; time the batch and print keyframes/s;
   6. drive the two-image matching path at full width (COLMAP's defaults:
      max_image_size 3200, max_num_features 8192, ratio 0.8, cross check):
      a 2400x3200 frame and its warp by a known homography go through
@@ -45,7 +46,30 @@ Phases, each fatal on failure:
      dense top-2 are timed, and the path end to end (pairs/s, and one
      profiled pair whose operator table goes to
      `chiprun_out/chip_smoke_match_profile.txt`).
-Then it prints one `kernels` JSON line, the card line, and as its last
+     The card's extraction of the pair is held against the CPU plain
+     path as sets (phase 5's criteria), and its host syncs are counted as
+     in phase 5;
+  7. drive the `twoview` command's path (`cli.twoview_extract`,
+     `twoview_match`, `twoview_pose`, configured by the command's parser)
+     on the TUM-RGBD fixture pair at 640x480 with TUM's freiburg1
+     intrinsics, launches 8/8/8/0; the pose must succeed with half the
+     matches as inliers, rotation within 0.1 deg and t within 2 deg of the
+     ground truth, the pose step on the card and on the CPU (same points,
+     same Gumbel noise) within TWOVIEW_R_DEG / TWOVIEW_T_DEG, and the CPU
+     plain path end to end must succeed too; time a pair by step;
+  8. run `run_ba` at the sizes users run: window BA at the pipeline's
+     capacities (8 keyframes, 2048 landmarks, 8192 observations, default
+     `BAConfig`, dense solver) and map-scale BA as benchmarks/ba_scale.py
+     sets it (256 cameras, 32768 landmarks, ~262k observations, PCG with
+     50 steps and Jacobi, huber, 10 LM iterations). The first card run is
+     made under `set_sync_debug_mode("error")`, so a host sync inside
+     `run_ba` fails the phase; the RMSE must fall tenfold; a second card
+     run must be bit-identical, and the CPU plain path (all iterations
+     for the window, 2 for the map) must agree within the BA_*
+     tolerances; time an LM iteration and a CG matvec with CUDA events,
+     and write each case's profiled run to OUT_DIR.
+Then it prints one `kernels` JSON line (with each kernel's launches on
+the twoview path as `launches_twoview`), the card line, and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
 CUDA card or no `sift_tpu_torch` beside it.
@@ -105,6 +129,40 @@ DESC_EDGE_SHAPES = [(1, 16), (37, 30), (1001, 48), (1, 48), (300, 16)]
 # block evenly.
 REFINE_EDGE_SHAPES = [(3, 4, 40, 48), (2, 7, 36, 30), (3, 15, 24, 20),
                       (3, 3, 12, 10), (1, 7, 9, 20)]
+# Extraction's host syncs per batch before their repair: the blocking
+# host-to-device copies of small constants (frontend/extrema.py,
+# refine.py, sift.py, orientation.py, kernels/gaussian.py), counted by
+# `count_syncs` on the parent commit 716d9ef's package on an H100 (PERF.md).
+SYNCS_BEFORE_REPAIR = {"488x600": 29, "2400x3200": 37}
+# Phase 7: the `twoview` command on the TUM-RGBD fixture pair, frames 0 and
+# 9 (3 cm a frame along x), with TUM's freiburg1 intrinsics.
+TUM_DIR = os.path.join("tests", "fixtures", "tum_mini",
+                       "rgbd_dataset_freiburg1_mini")
+TUM_PAIR = ("1305031100.000000", "1305031100.300000")
+TUM_FR1_INTRINSICS = (517.3, 516.5, 318.6, 255.3)
+TWOVIEW_LAUNCHES = {"gather_windows": 8, "refine_walk": 8,
+                    "descriptor_accumulate": 8, "streaming_top2": 0}
+# Tolerances of the two-view pose, card against the CPU plain path on the
+# same matched points and noise (degrees).
+TWOVIEW_R_DEG, TWOVIEW_T_DEG = 0.02, 0.1
+# Phase 8: window BA at the pipeline's static capacities
+# (sift_tpu/config.py:215-221: window of 8 keyframes, 2048 landmarks, 8192
+# observations) and map-scale global BA as benchmarks/ba_scale.py sets it
+# (256 cameras, 32768 landmarks, 1024 observations a camera).
+WINDOW_C, WINDOW_L, WINDOW_O = 8, 2048, 8192
+MAP_C, MAP_L, MAP_OBS_PER_CAM = 256, 32768, 1024
+# BA states, card against the CPU plain path: RMSE to BA_RMSE_RTOL
+# relative, poses and landmarks to BA_STATE_RTOL of their largest
+# coordinate (at least 1; the map's corridor is 256 m long), iterations
+# exactly, CG steps within BA_CG_SLACK per LM iteration. The two devices
+# add f32 sums in other orders, so once the cost has converged the LM
+# accept tests turn on rounding and the runs may stop at other points of
+# the optimum's flat valley (window BA after 20 iterations: poses up to
+# 1.3e-4 of the largest coordinate apart at equal RMSE). Two card runs
+# must be bit-identical (`ba/schur.py` sums segments without atomics).
+BA_RMSE_RTOL, BA_STATE_RTOL, BA_CG_SLACK = 1e-4, 1e-3, 2
+BA_KEYS = ("poses_init", "intrinsics", "landmarks_init", "obs_cam", "obs_lm",
+           "obs_uv", "obs_valid")
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -170,6 +228,59 @@ def warp_homography(img: np.ndarray, Hm: np.ndarray,
 def map_points(Hm: np.ndarray, pts: np.ndarray) -> np.ndarray:
     q = np.c_[pts, np.ones(len(pts))] @ np.asarray(Hm, np.float64).T
     return q[:, :2] / q[:, 2:]
+
+
+def _run_counted(fn):
+    """Marks, on the stack, the calls whose syncs `count_syncs` counts."""
+    return fn()
+
+
+def count_syncs(torch, fn) -> list:
+    """Run `fn` under `torch.cuda.set_sync_debug_mode("warn")`; return one
+    "file:line" per host sync made inside it: the innermost frame of the
+    repo's own code on the stack at the sync (the innermost frame of all,
+    where the repo's code is not on the stack). Syncs outside `fn` (the
+    mode switch itself, finalizers) are not counted."""
+    import traceback
+    import warnings
+    here = os.path.dirname(os.path.abspath(__file__))
+    me = os.path.abspath(__file__)
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if f.filename != warnings.__file__]
+        if "synchroniz" not in str(message) or not any(
+                f.name == "_run_counted" and os.path.abspath(f.filename) == me
+                for f in frames):
+            return
+        own = [f for f in frames if f.filename.startswith(here + os.sep)
+               and os.path.abspath(f.filename) != me]
+        f = own[-1] if own else frames[-1]
+        sites.append(f"{os.path.relpath(f.filename, here)}:{f.lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _run_counted(fn)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def hold_syncs(torch, fn, label: str) -> int:
+    """Count the host syncs of a warm call of `fn` and fail on any."""
+    fn()
+    torch.cuda.synchronize()
+    sites = count_syncs(torch, fn)
+    before = SYNCS_BEFORE_REPAIR.get(label)
+    print(f"extract_batch host syncs per batch at {label}: {len(sites)} "
+          f"{sorted(set(sites))} (before the repair: {before})", flush=True)
+    if sites:
+        raise Failed(f"extract_batch syncs the host at {label}: {sites}")
+    return len(sites)
 
 
 def fail(msg: str) -> int:
@@ -745,6 +856,25 @@ def match_phase(torch, card: str):
               f"({at_size[name]['timing']}), stream {t['ms_stream']:.4f} ms, "
               f"bound {bms:.4f} ms ({by}); card {card}", flush=True)
 
+    # The card's extraction against the CPU plain path at this size, as
+    # sets (phase 5's criteria), and the host syncs of a batch.
+    t0 = time.perf_counter()
+    cpu = extract_batch(pair_np, scfg, device="cpu").to_numpy()
+    cpu_s = time.perf_counter() - t0
+    card_kp = kp.to_numpy()
+    for i in range(2):
+        fwd, worst_fwd = match_keypoints(cpu, card_kp, i)
+        back, worst_back = match_keypoints(card_kp, cpu, i)
+        worst = max(worst_fwd, worst_back)
+        print(f"{h}x{w} image {i} vs CPU plain path ({cpu_s:.1f} s): "
+              f"{int(cpu.valid[i].sum())} vs {int(card_kp.valid[i].sum())} "
+              f"valid, matched {fwd:.4f} / {back:.4f}, max desc diff "
+              f"{worst:.3g}", flush=True)
+        if min(fwd, back) < 0.99 or worst > 2e-3:
+            raise Failed(f"card and CPU plain path disagree on {h}x{w} "
+                         f"image {i}")
+    hold_syncs(torch, lambda: extract_batch(pair, scfg), f"{h}x{w}")
+
     # The kernel against its plain version on the recorded arguments, and
     # at the repo's large-matching size.
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -877,6 +1007,255 @@ def match_phase(torch, card: str):
         "pairs_per_s": 1 / pair_s, "pair_ms": 1e3 * pair_s,
         "extract_ms": 1e3 * extract_s, "match_ms": 1e3 * match_s,
         "ransac_ms": 1e3 * ransac_s, "busy_ms": busy_ms, "wall_ms": wall_ms,
+    }
+
+
+def tum_relative_pose(here: str):
+    """Ground-truth camera-B-from-camera-A (R, t) of the TUM pair from
+    groundtruth.txt (world-from-camera tx ty tz qx qy qz qw rows)."""
+    rows = np.loadtxt(os.path.join(here, TUM_DIR, "groundtruth.txt"),
+                      comments="#")
+    poses = []
+    for stamp in TUM_PAIR:
+        tx, ty, tz, qx, qy, qz, qw = rows[np.argmin(np.abs(
+            rows[:, 0] - float(stamp))), 1:]
+        R = np.array([
+            [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw),
+             2 * (qx * qz + qy * qw)],
+            [2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz),
+             2 * (qy * qz - qx * qw)],
+            [2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw),
+             1 - 2 * (qx * qx + qy * qy)]])
+        poses.append((R, np.array([tx, ty, tz])))
+    (Ra, pa), (Rb, pb) = poses
+    return Rb.T @ Ra, Rb.T @ (pa - pb)
+
+
+def rot_deg(R) -> float:
+    """Rotation angle of R in degrees, from atan2(|skew|, cos): exact near
+    zero, where arccos of the trace loses half the digits."""
+    R = np.asarray(R, np.float64)
+    s = np.linalg.norm([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                        R[1, 0] - R[0, 1]]) / 2.0
+    return float(np.degrees(np.arctan2(s, (np.trace(R) - 1.0) / 2.0)))
+
+
+def dir_deg(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    c = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def twoview_phase(torch, card: str) -> dict:
+    """Phase 7: the `twoview` command's path on the TUM fixture pair at
+    640x480 with its default `SiftConfig` (lowe, 4 octaves, top-K 1024,
+    f32 windows); returns the launch counts of that run."""
+    from sift_tpu_torch import cli
+    from sift_tpu_torch.geometry.ransac import gumbel
+    from sift_tpu_torch.io.image import load_image_gray
+    from sift_tpu_torch.kernels import cuda as kcuda
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = [os.path.join(here, TUM_DIR, "rgb", f"{s}.png") for s in TUM_PAIR]
+    intr = [f"--{k}={v}" for k, v in zip(("fx", "fy", "cx", "cy"),
+                                         TUM_FR1_INTRINSICS)]
+    args = cli.build_parser().parse_args(["twoview", *paths, *intr])
+    cfg = cli._sift_config(args)
+    grays = [load_image_gray(p) for p in paths]
+    intrinsics = (args.fx, args.fy, args.cx, args.cy)
+
+    def run(device="cuda", noise=None):
+        kps = cli.twoview_extract(grays, cfg, device)
+        m, pa, pb, valid = cli.twoview_match(kps, args.ratio)
+        return (m, pa, pb, valid, *cli.twoview_pose(pa, pb, valid, intrinsics,
+                                                    args.threshold, noise))
+
+    kcuda.reset_launch_counts()
+    m, pa, pb, valid, R, t, est = run()
+    torch.cuda.synchronize()
+    launches = kcuda.launch_counts()
+    print(f"phase 7 launches: {launches}", flush=True)
+    if launches != TWOVIEW_LAUNCHES:
+        raise Failed(f"phase 7 launch counts {launches} != {TWOVIEW_LAUNCHES}")
+
+    R_gt, t_gt = tum_relative_pose(here)
+    n_match, n_in = int(m.count()), int(est.num_inliers)
+    R, t = R.double().cpu().numpy(), t.double().cpu().numpy()
+    r_err, t_err = rot_deg(R @ R_gt.T), dir_deg(t, t_gt)
+    print(f"twoview {TUM_PAIR[0]} -> {TUM_PAIR[1]}: matches {n_match}, "
+          f"inliers {n_in}, success {bool(est.success)}; rotation {r_err:.4f} "
+          f"deg from the ground truth, t {np.round(t, 5).tolist()} "
+          f"{t_err:.4f} deg from the ground-truth baseline", flush=True)
+    if not bool(est.success) or n_in * 2 < n_match:
+        raise Failed(f"twoview: {n_in} inliers of {n_match} matches")
+    if r_err > 0.1 or t_err > 2.0:
+        raise Failed(f"twoview pose off: rotation {r_err} deg, t {t_err} deg")
+
+    # The pose step on the card and on the CPU, same points and noise.
+    noise = gumbel(torch.Generator().manual_seed(0), (512, pa.shape[0]), "cpu")
+    R1, t1, e1 = cli.twoview_pose(pa, pb, valid, intrinsics, args.threshold,
+                                  noise.cuda())
+    R2, t2, e2 = cli.twoview_pose(pa.cpu(), pb.cpu(), valid.cpu(), intrinsics,
+                                  args.threshold, noise)
+    dr = rot_deg(R1.double().cpu().numpy() @ R2.double().numpy().T)
+    dt = dir_deg(t1.double().cpu().numpy(), t2.double().numpy())
+    dn = abs(int(e1.num_inliers) - int(e2.num_inliers))
+    print(f"twoview pose card vs CPU plain path (same points, same noise): "
+          f"rotation {dr:.5f} deg, t {dt:.5f} deg, inliers "
+          f"{int(e1.num_inliers)} vs {int(e2.num_inliers)}", flush=True)
+    if dr > TWOVIEW_R_DEG or dt > TWOVIEW_T_DEG or dn > 0.01 * int(e2.num_inliers):
+        raise Failed("twoview pose differs between the card and the CPU")
+    # The whole path on the CPU, against the ground truth.
+    mc, _, _, _, Rc, tc, ec = run("cpu")
+    print(f"twoview CPU plain path: matches {int(mc.count())}, inliers "
+          f"{int(ec.num_inliers)}, rotation {rot_deg(Rc.double().numpy() @ R_gt.T):.4f}"
+          f" deg, t {dir_deg(tc.double().numpy(), t_gt):.4f} deg", flush=True)
+    if not bool(ec.success) or abs(int(mc.count()) - n_match) > 0.05 * n_match:
+        raise Failed("twoview: the CPU plain path disagrees with the card")
+
+    # Time per pair, by step (CUDA events around each, after a warm run).
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    reps, ms = 5, np.zeros(3)
+    for _ in range(reps):
+        ev[0].record()
+        kps = cli.twoview_extract(grays, cfg, "cuda")
+        ev[1].record()
+        m, pa, pb, valid = cli.twoview_match(kps, args.ratio)
+        ev[2].record()
+        cli.twoview_pose(pa, pb, valid, intrinsics, args.threshold)
+        ev[3].record()
+        ev[3].synchronize()
+        ms += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    ms /= reps
+    busy_ms, wall_ms = profile_busy(
+        torch, lambda: cli.twoview_pose(pa, pb, valid, intrinsics,
+                                        args.threshold)[0].cpu(),
+        "chip_smoke_twoview_pose_profile.txt", card)
+    print(f"twoview 640x480 pair: {ms.sum():.3f} ms/pair (CUDA events; "
+          f"extraction {ms[0]:.3f} ms for both images, matching {ms[1]:.3f} "
+          f"ms, relative pose {ms[2]:.3f} ms); profiled relative pose device "
+          f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall; card {card}",
+          flush=True)
+    return launches
+
+
+def ba_inputs(torch, scene: dict, device) -> list:
+    return [torch.from_numpy(np.asarray(scene[k])).to(device) for k in BA_KEYS]
+
+
+def hold_ba_states(a, b, label: str, lm_iters: int) -> None:
+    """Two `BAState`s within the BA_* tolerances."""
+    def rel(x, y):
+        x, y = x.double().cpu(), y.double().cpu()
+        return float((x - y).abs().max()) / max(float(y.abs().max()), 1.0)
+
+    dp, dl = rel(a.poses, b.poses), rel(a.landmarks, b.landmarks)
+    dr = abs(float(a.rmse) - float(b.rmse)) / max(float(b.rmse), 1e-12)
+    dcg = abs(int(a.cg_iters) - int(b.cg_iters))
+    print(f"{label}: poses {dp:.3g}, landmarks {dl:.3g}, rmse {dr:.3g} "
+          f"relative; iterations {int(a.iterations)} vs {int(b.iterations)}, "
+          f"cg_iters {int(a.cg_iters)} vs {int(b.cg_iters)}", flush=True)
+    if (max(dp, dl) > BA_STATE_RTOL or dr > BA_RMSE_RTOL
+            or int(a.iterations) != int(b.iterations)
+            or dcg > BA_CG_SLACK * lm_iters):
+        raise Failed(f"{label}: BA states differ beyond the tolerances")
+
+
+def ba_case(torch, card: str, label: str, scene: dict, cfg, cpu_iters: int):
+    """Run `run_ba` on the card (no host sync allowed inside), again for
+    the time and card-to-card agreement, and on the CPU for `cpu_iters` LM
+    iterations; print and check the result."""
+    from sift_tpu_torch.ba.residuals import cost
+    from sift_tpu_torch.ba.schur import build_system, schur_matvec
+    from sift_tpu_torch.ba.solver import run_ba
+
+    C = scene["poses_init"].shape[0]
+    fixed = np.zeros(C, bool)
+    fixed[:2] = True
+    args = ba_inputs(torch, scene, "cuda")
+    fixed_d = torch.from_numpy(fixed).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = run_ba(*args, cfg, fixed_d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    st2 = run_ba(*args, cfg, fixed_d)
+    end.record()
+    end.synchronize()
+    run_ms = start.elapsed_time(end)
+
+    _, rmse0 = cost(args[0], args[1], args[2], *args[3:], cfg.huber_delta)
+    n_obs = int(args[6].sum())
+    print(f"{label}: C={C}, L={scene['landmarks_init'].shape[0]}, O="
+          f"{args[3].shape[0]} ({n_obs} valid); rmse {float(rmse0):.4f} -> "
+          f"{float(st.rmse):.4f} px, iterations {int(st.iterations)}, cg_iters "
+          f"{int(st.cg_iters)}; no host sync inside run_ba", flush=True)
+    if not float(st.rmse) < 0.1 * float(rmse0):
+        raise Failed(f"{label}: rmse {float(rmse0)} -> {float(st.rmse)}")
+    if not bool(torch.isfinite(st.poses).all()):
+        raise Failed(f"{label}: non-finite poses")
+    fields = ("poses", "landmarks", "cost", "rmse", "damping", "iterations",
+              "cg_iters")
+    same = all(torch.equal(getattr(st, f), getattr(st2, f)) for f in fields)
+    print(f"{label} card vs card: bit-identical {same}", flush=True)
+    if not same:
+        raise Failed(f"{label}: two card runs differ")
+
+    want = run_ba(*ba_inputs(torch, scene, "cpu"),
+                  cfg.replace(max_iterations=cpu_iters), torch.from_numpy(fixed))
+    got = st if cpu_iters == cfg.max_iterations else run_ba(
+        *args, cfg.replace(max_iterations=cpu_iters), fixed_d)
+    hold_ba_states(got, want, f"{label} card vs CPU plain path "
+                   f"({cpu_iters} LM iterations)", cpu_iters)
+
+    busy_ms, wall_ms = profile_busy(
+        torch, lambda: run_ba(*args, cfg, fixed_d).rmse.item(),
+        f"chip_smoke_{label.split()[0]}_ba_profile.txt", card)
+    out = {"ms_per_lm_iteration": run_ms / cfg.max_iterations,
+           "run_ms": run_ms, "busy_ms": busy_ms, "wall_ms": wall_ms}
+    msg = (f"{run_ms / cfg.max_iterations:.3f} ms per LM iteration; profiled "
+           f"run device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall")
+    if cfg.solver == "pcg":
+        system = build_system(*args[:7], cfg.huber_delta, cfg.damping_init,
+                              fixed_d, cfg.loss)
+        p = torch.randn((C, 6), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+        out["ms_per_cg_matvec"] = event_ms(
+            torch, lambda: schur_matvec(system, p), 20)
+        msg += f", {out['ms_per_cg_matvec']:.4f} ms per CG matvec"
+    print(f"{label}: {msg} (CUDA events, {cfg.max_iterations} LM iterations, "
+          f"all executed); card {card}", flush=True)
+    return out
+
+
+def ba_phase(torch, card: str) -> dict:
+    """Phase 8: window BA at the pipeline's capacities and map-scale BA."""
+    from sift_tpu_torch.config import BAConfig
+    from sift_tpu_torch.io.synthetic import (make_corridor_scene, make_scene,
+                                             pad_observations)
+
+    window = make_scene(np.random.default_rng(0), num_cameras=WINDOW_C,
+                        num_landmarks=WINDOW_L, pixel_noise=0.5,
+                        pose_noise=0.02, landmark_noise=0.1, drop_rate=0.55)
+    if window["obs_cam"].shape[0] > WINDOW_O:
+        raise Failed(f"window scene has {window['obs_cam'].shape[0]} > "
+                     f"{WINDOW_O} observations")
+    window = pad_observations(window, WINDOW_O)
+    t0 = time.perf_counter()
+    corridor = make_corridor_scene(
+        np.random.default_rng(0), num_cameras=MAP_C, num_landmarks=MAP_L,
+        obs_per_camera=MAP_OBS_PER_CAM, pose_noise=0.02, landmark_noise=0.2)
+    print(f"phase 8: corridor scene made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {
+        "window": ba_case(torch, card, "window BA", window, BAConfig(),
+                          cpu_iters=BAConfig().max_iterations),
+        "map": ba_case(torch, card, "map-scale BA", corridor,
+                       BAConfig(max_iterations=10, cg_iterations=50,
+                                solver="pcg", loss="huber"), cpu_iters=2),
     }
 
 
@@ -1060,6 +1439,11 @@ def main() -> int:
         if min(fwd, back) < 0.99 or worst > 2e-3:
             return fail(f"card and CPU plain path disagree on the {label}")
 
+    try:
+        hold_syncs(torch, lambda: extract_batch(frames, cfg),
+                   f"{HEIGHT}x{WIDTH}")
+    except Failed as e:
+        return fail(str(e))
     reps = 20
     extract_batch(frames, cfg)
     torch.cuda.synchronize()
@@ -1081,8 +1465,15 @@ def main() -> int:
         extraction_err, at_size, row = match_phase(torch, card)
     except Failed as e:
         return fail(str(e))
+    # 7. the two-view path; 8. bundle adjustment
+    try:
+        twoview_launches = twoview_phase(torch, card)
+        ba_phase(torch, card)
+    except Failed as e:
+        return fail(str(e))
     size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
     for r in rows:
+        r["launches_twoview"] = twoview_launches[r["name"]]
         r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
         if r["name"] in at_size:
             t = at_size[r["name"]]
@@ -1093,6 +1484,7 @@ def main() -> int:
                       for k in ("walk_cells", "covered_cells") if k in t})
         if r["name"] == "descriptor_accumulate":
             r.update({"deterministic": True, "sass_atomics": len(atomics)})
+    row["launches_twoview"] = twoview_launches["streaming_top2"]
     rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)

@@ -1,13 +1,19 @@
 """Command line of the PyTorch port (counterpart of `sift_tpu/cli.py`,
-`match` subcommand only).
+`match` and `twoview` subcommands).
 
     python -m sift_tpu_torch.cli match a.png b.png [--device cuda|cpu]
+    python -m sift_tpu_torch.cli twoview a.png b.png [--fx F --fy F
+        --cx C --cy C] [--device cuda|cpu]
 
-Extracts both images (lowe mode), matches their descriptors (ratio test,
-mutual), and verifies the matches with homography RANSAC, with the JAX
-command's flags and output lines. `--device` (default `cuda`) picks where
-everything runs; RANSAC draws from a `torch.Generator` seeded with 0 on
-that device.
+`match` extracts both images (lowe mode), matches their descriptors (ratio
+test, mutual), and verifies the matches with homography RANSAC. `twoview`
+extracts and matches the same way, normalizes the matched pixels by the
+intrinsics (default: focal = the larger image side, principal point at
+the centre) and estimates the camera-B-from-camera-A pose (5-point
+essential RANSAC, cheirality, Gauss-Newton polish). Both take the JAX
+command's flags and print its output lines. `--device` (default `cuda`)
+picks where everything runs; RANSAC draws from a `torch.Generator` seeded
+with 0 on that device.
 """
 
 from __future__ import annotations
@@ -133,10 +139,88 @@ def cmd_match(args) -> int:
     return 0
 
 
+def twoview_extract(grays, cfg, device):
+    """`twoview` step 1: keypoints and descriptors of each (H, W) image."""
+    from sift_tpu_torch.frontend.sift import extract
+
+    return [extract(g, cfg, True, device=device) for g in grays]
+
+
+def twoview_match(kps, ratio: float):
+    """`twoview` step 2: (matches, pa, pb, valid) in original pixels."""
+    from sift_tpu_torch.config import MatchConfig
+    from sift_tpu_torch.matching.matcher import match_keypoints, matched_coords
+
+    m = match_keypoints(kps[0], kps[1], MatchConfig(ratio=ratio))
+    return (m, *matched_coords(kps[0], kps[1], m))
+
+
+def default_intrinsics(height: int, width: int):
+    """The JAX command's crude default: focal = max image dim, principal
+    point = centre."""
+    f = float(max(height, width))
+    return f, f, width / 2.0, height / 2.0
+
+
+def twoview_pose(pa, pb, valid, intrinsics, threshold: float, noise=None):
+    """`twoview` step 3: normalize by (fx, fy, cx, cy) and estimate the
+    relative pose. RANSAC draws from `noise`, a Gumbel tensor or a
+    `torch.Generator`; by default a generator seeded with 0 on the points'
+    device. Returns (R, t, TwoViewEstimate)."""
+    import torch
+
+    from sift_tpu_torch.config import RansacConfig
+    from sift_tpu_torch.geometry.epipolar import estimate_relative_pose
+
+    fx, fy, cx, cy = intrinsics
+    na = torch.stack([(pa[:, 0] - cx) / fx, (pa[:, 1] - cy) / fy], -1)
+    nb = torch.stack([(pb[:, 0] - cx) / fx, (pb[:, 1] - cy) / fy], -1)
+    if noise is None:
+        noise = torch.Generator(device=pa.device).manual_seed(0)
+    return estimate_relative_pose(noise, na, nb, valid,
+                                  RansacConfig(inlier_threshold=threshold),
+                                  focal=fx)
+
+
+def cmd_twoview(args) -> int:
+    """Relative pose between two frames (essential RANSAC + GN polish)."""
+    import torch
+
+    from sift_tpu_torch.io.image import load_image_gray
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grays = [load_image_gray(f) for f in (args.image_a, args.image_b)]
+    intrinsics = (args.fx, args.fy, args.cx, args.cy)
+    if args.fx is None:
+        intrinsics = default_intrinsics(*grays[0].shape)
+
+    t0 = time.perf_counter()
+    kps = twoview_extract(grays, _sift_config(args), args.device)
+    _sync(args.device)
+    t1 = time.perf_counter()
+    m, pa, pb, valid = twoview_match(kps, args.ratio)
+    _sync(args.device)
+    t2 = time.perf_counter()
+    R, t, est = twoview_pose(pa, pb, valid, intrinsics, args.threshold)
+    success = bool(est.success)
+    t3 = time.perf_counter()
+    print(f"matches: {int(m.count())}  inliers: {int(est.num_inliers)}  "
+          f"success: {success}")
+    print("R =\n", np.round(R.cpu().numpy(), 5))
+    print("t =", np.round(t.cpu().numpy(), 5), "(unit scale)")
+    if args.time:
+        print(f"extract {1e3 * (t1 - t0):.3f} ms (both images), match "
+              f"{1e3 * (t2 - t1):.3f} ms, relative pose "
+              f"{1e3 * (t3 - t2):.3f} ms on {args.device}")
+    return 0 if success else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     top = argparse.ArgumentParser(
         prog="sift-tpu-torch",
-        description="PyTorch/CUDA port of sift-tpu (match subcommand)")
+        description="PyTorch/CUDA port of sift-tpu (match and twoview "
+                    "subcommands)")
     sub = top.add_subparsers(dest="command")
     pm = sub.add_parser("match", help="extract + match two images")
     pm.add_argument("image_a")
@@ -152,6 +236,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where to run: cuda (default) or cpu")
     _add_reference_flags(pm)
     pm.set_defaults(func=cmd_match)
+
+    pt = sub.add_parser("twoview", help="relative pose between two frames")
+    pt.add_argument("image_a")
+    pt.add_argument("image_b")
+    pt.add_argument("--ratio", type=float, default=0.8)
+    pt.add_argument("--threshold", type=float, default=2.0,
+                    help="RANSAC inlier threshold in pixels")
+    pt.add_argument("--fx", type=float)
+    pt.add_argument("--fy", type=float)
+    pt.add_argument("--cx", type=float)
+    pt.add_argument("--cy", type=float)
+    pt.add_argument("--device", default="cuda",
+                    help="where to run: cuda (default) or cpu")
+    _add_reference_flags(pt)
+    pt.set_defaults(func=cmd_twoview)
     return top
 
 

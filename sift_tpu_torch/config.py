@@ -1,8 +1,8 @@
 """Configuration of the PyTorch port.
 
-Copies of `sift_tpu.config.SiftConfig`, `MatchConfig` and `RansacConfig`
-(same fields, defaults and checks), kept here so that importing the port
-never imports the JAX package. The system has no learned weights: the
+Copies of `sift_tpu.config.SiftConfig`, `MatchConfig`, `RansacConfig` and
+`BAConfig` (same fields, defaults and checks), kept here so that
+importing the port never imports the JAX package. The system has no learned weights: the
 configuration, and the blur operators and sigma tables derived from it,
 are all that crosses from the JAX package. `config_from_dict` takes
 `dataclasses.asdict` of a `sift_tpu` config.
@@ -94,19 +94,44 @@ class RansacConfig:
     inlier_threshold: float = 2.0   # pixels (model-dependent interpretation)
     min_inliers: int = 15
     refit: bool = True              # weighted least-squares refit on inliers
-    essential_solver: str = "5pt"   # "5pt" minimal | "8pt" linear (not ported)
+    essential_solver: str = "5pt"   # "5pt" minimal | "8pt" linear
 
     def replace(self, **kw) -> "RansacConfig":
         return dataclasses.replace(self, **kw)
 
 
-_CONFIGS = (SiftConfig, MatchConfig, RansacConfig)
+@dataclasses.dataclass(frozen=True)
+class BAConfig:
+    """Schur-complement bundle adjustment."""
+
+    max_iterations: int = 20
+    cg_iterations: int = 50
+    cg_tol: float = 1e-6
+    damping_init: float = 1e-3
+    damping_min: float = 1e-9
+    damping_max: float = 1e6
+    huber_delta: float = 3.0        # pixels; robust loss scale
+    loss: str = "huber"             # "huber" | "cauchy" | "none"
+    # Graduated robust loss: effective delta = max(huber_delta,
+    # robust_anneal * initial median residual * 0.5^iteration); 0 disables.
+    robust_anneal: float = 3.0
+    jacobi_precond: bool = True
+    # Reduced-camera-system solver: "pcg" (matrix-free), "dense" (Cholesky
+    # of the 6C x 6C Schur complement), or "auto" (dense when C <= 16).
+    solver: str = "auto"
+
+    def replace(self, **kw) -> "BAConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_CONFIGS = (SiftConfig, MatchConfig, RansacConfig, BAConfig)
 
 
 def config_from_dict(d: dict):
     """Build a port config from `dataclasses.asdict` of a JAX-package
-    config: the one of `SiftConfig`, `MatchConfig`, `RansacConfig` whose
-    fields hold every key (their field names are disjoint)."""
+    config: the one of `SiftConfig`, `MatchConfig`, `RansacConfig`,
+    `BAConfig` whose fields hold every key (their field names are
+    disjoint)."""
     for cls in _CONFIGS:
         if set(d) <= {f.name for f in dataclasses.fields(cls)}:
             return cls(**d)

@@ -65,8 +65,7 @@ def detect_extrema_octave(dogs: torch.Tensor, cfg: SiftConfig, octave: int = 0):
 
     mask = torch.stack(masks, dim=1)                          # (B, L-2, H, W)
     flat_score = torch.where(mask, torch.stack(scores, dim=1),
-                             torch.tensor(-1.0, device=dogs.device)
-                             ).reshape(B, -1)
+                             -1.0).reshape(B, -1)
     k_eff = min(K, flat_score.shape[1])
     top_scores, top_idx = top_k_stable(flat_score, k_eff)
     if k_eff < K:

@@ -28,8 +28,7 @@ def peaks_from_histogram(hist: torch.Tensor, max_peaks: int, rel: float = 0.8):
     right = torch.roll(hist, -1, dims=-1)
     hmax = hist.max(dim=-1, keepdim=True).values
     is_peak = (hist >= left) & (hist > right) & (hist >= rel * hmax) & (hmax > 0)
-    score = torch.where(is_peak, hist, torch.tensor(float("-inf"),
-                                                    device=hist.device))
+    score = torch.where(is_peak, hist, float("-inf"))
     top_vals, top_idx = top_k_stable(score, max_peaks)
     pvalid = torch.isfinite(top_vals)
 

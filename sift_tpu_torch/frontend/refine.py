@@ -15,6 +15,7 @@ from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.kernels.cuda import refine as walk_kernel
 from sift_tpu_torch.kernels.derivatives import (scale_space_gradient_hessian,
                                                 solve3x3)
+from sift_tpu_torch.utils.device import constant
 
 __all__ = ["solve3x3", "refine_octave_lowe"]
 
@@ -42,12 +43,10 @@ def refine_octave_lowe(dogs: torch.Tensor, cand: dict, cfg: SiftConfig,
                            < (r + 1) ** 2 / r)
     in_range = (off.abs() < 0.6).all(dim=-1) & converged & solvable
 
-    sig_table = torch.tensor(dog_sigmas[octave], dtype=torch.float32,
-                             device=dogs.device)
-    k = torch.tensor(cfg.k, dtype=torch.float32, device=dogs.device)
-    scale = (sig_table[li.long()] * torch.pow(k, off[..., 2])
-             * torch.tensor(octave_factor ** octave, dtype=torch.float32,
-                            device=dogs.device))
+    dev = dogs.device
+    scale = (constant(dog_sigmas[octave], dev)[li.long()]
+             * torch.pow(constant(cfg.k, dev), off[..., 2])
+             * constant(octave_factor ** octave, dev))
     out = dict(cand)
     out["x"] = xi.to(torch.float32) + off[..., 0]
     out["y"] = yi.to(torch.float32) + off[..., 1]

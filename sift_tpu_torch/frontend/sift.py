@@ -29,6 +29,7 @@ from sift_tpu_torch.frontend.windows import (
     orientation_from_windows,
 )
 from sift_tpu_torch.types import Keypoints
+from sift_tpu_torch.utils.device import constant
 
 MAX_ORI_PEAKS = 2
 
@@ -92,10 +93,8 @@ def extract_lowe_batched(imgs: torch.Tensor, cfg: SiftConfig,
         L1, H, W = g.shape[-3:]
         K = cand["x"].shape[1]
         dxm, dym = _gradient_xy(g)
-        sigma_within = cand["scale"] / torch.tensor(
-            octave_factor ** o, dtype=torch.float32, device=dev)
-        table = torch.tensor(pyr.gauss_sigmas[o], dtype=torch.float32,
-                             device=dev)
+        sigma_within = cand["scale"] / constant(octave_factor ** o, dev)
+        table = constant(pyr.gauss_sigmas[o], dev)
         gl = torch.argmin((table - sigma_within[..., None]).abs(), dim=-1)
         in_bounds = ((cand["x"] >= R_ORI) & (cand["x"] < W - R_ORI)
                      & (cand["y"] >= R_ORI) & (cand["y"] < H - R_ORI))
@@ -141,8 +140,7 @@ def extract_lowe_batched(imgs: torch.Tensor, cfg: SiftConfig,
     desc = torch.cat(descs, dim=1) if with_descriptors else None
 
     N = min(cfg.max_keypoints, kp["score"].shape[1])
-    rank_score = torch.where(kp["valid"], kp["score"],
-                             torch.tensor(float("-inf"), device=dev))
+    rank_score = torch.where(kp["valid"], kp["score"], float("-inf"))
     top_scores, idx = top_k_stable(rank_score, N)
 
     def take(a):

@@ -101,3 +101,69 @@ def ransac_homography(noise: Noise, pa: torch.Tensor, pb: torch.Tensor,
         cfg=cfg,
         refit_fn=fit_homography,
     )
+
+
+def decompose_homography(H: torch.Tensor, na: torch.Tensor, nb: torch.Tensor,
+                         weights: torch.Tensor):
+    """Faugeras decomposition of a calibrated homography into (R, t, n).
+
+    H relates normalized coordinates, x_b ~ H x_a, for points on a plane
+    n^T X = d (camera-A frame): H = R + t n^T / d. The SVD construction
+    gives eight (R, t, n) candidates; cheirality (triangulated points in
+    front of both cameras) picks one, as in `decompose_essential`.
+
+    Returns (R (3, 3), t (3,) with |t| = 1 (or 0 for pure rotation),
+    n (3,), num_good int32)."""
+    from sift_tpu_torch.geometry.triangulation import count_in_front
+
+    U, D, Vt = torch.linalg.svd(H)
+    V = Vt.T
+    s = torch.linalg.det(U) * torch.linalg.det(V)
+    d1, d2, d3 = D[0], D[1], D[2]
+
+    eps = 1e-9
+    spread = torch.clamp_min(d1 * d1 - d3 * d3, eps)
+    x1 = torch.sqrt(torch.clamp_min((d1 * d1 - d2 * d2) / spread, 0.0))
+    x3 = torch.sqrt(torch.clamp_min((d2 * d2 - d3 * d3) / spread, 0.0))
+    root = torch.sqrt(torch.clamp_min((d1 * d1 - d2 * d2) * (d2 * d2 - d3 * d3),
+                                      0.0))
+    # Case d'2 > 0 (translation "across" the plane normal).
+    sin_t = root / torch.clamp_min((d1 + d3) * d2, eps)
+    cos_t = (d2 * d2 + d1 * d3) / torch.clamp_min((d1 + d3) * d2, eps)
+    # Case d'2 < 0 (reflection branch).
+    sin_p = root / torch.clamp_min((d1 - d3).abs() * d2, eps)
+    cos_p = (d1 * d3 - d2 * d2) / torch.clamp_min((d1 - d3).abs() * d2, eps)
+
+    zero, one = torch.zeros_like(d1), torch.ones_like(d1)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r) for r in rows])
+
+    Rs, ts, ns = [], [], []
+    for e1 in (1.0, -1.0):
+        for e3 in (1.0, -1.0):
+            st = e1 * e3 * sin_t
+            Rp = mat([[cos_t, zero, -st], [zero, one, zero], [st, zero, cos_t]])
+            tp = (d1 - d3) * torch.stack([e1 * x1, zero, -e3 * x3])
+            n_p = torch.stack([e1 * x1, zero, e3 * x3])
+            Rs.append(s * U @ Rp @ Vt)
+            ts.append(U @ tp)
+            ns.append(V @ n_p)
+
+            sp = e1 * e3 * sin_p
+            Rn = mat([[cos_p, zero, sp], [zero, -one, zero], [sp, zero, -cos_p]])
+            tn = (d1 + d3) * torch.stack([e1 * x1, zero, e3 * x3])
+            Rs.append(s * U @ Rn @ Vt)
+            ts.append(U @ tn)
+            ns.append(V @ n_p)
+
+    Rs = torch.stack(Rs)
+    ts = torch.stack(ts)
+    ns = torch.stack(ns)
+    ts = ts / torch.clamp_min(torch.linalg.vector_norm(ts, dim=-1, keepdim=True),
+                              eps)
+    counts = count_in_front(Rs, ts, na, nb, weights)
+    best = torch.argmax(counts).reshape(1)
+    return (Rs.index_select(0, best)[0], ts.index_select(0, best)[0],
+            ns.index_select(0, best)[0],
+            counts.index_select(0, best)[0].to(torch.int32))

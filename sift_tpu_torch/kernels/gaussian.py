@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from sift_tpu_torch.utils.device import check_f32_matmul
+
 
 def gaussian_radius(sigma: float) -> int:
     """Vigra's kernel radius: round(3*sigma)."""
@@ -66,13 +68,22 @@ def _blur_matrix_t(n: int, sigma: float, radius, device: str) -> torch.Tensor:
 _MATMUL_MAX_DIM = 2048
 
 
+def _mirror_indices(n: int, r: int, device) -> torch.Tensor:
+    """`_mirror_index(j - r, n)` for j in [0, n + 2r), computed on `device`
+    (no host table to copy there)."""
+    j = torch.arange(-r, n + r, device=device)
+    if n == 1:
+        return torch.zeros_like(j)
+    period = 2 * n - 2
+    j = torch.remainder(j, period)
+    return torch.where(j < n, j, period - j)
+
+
 def _stencil_1d(img: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
     """Mirror-padded 1-D convolution along `dim` as a shifted-add stencil."""
     n = img.shape[dim]
     r = (len(taps) - 1) // 2
-    idx = torch.tensor([_mirror_index(j - r, n) for j in range(n + 2 * r)],
-                       device=img.device)
-    padded = img.index_select(dim, idx)
+    padded = img.index_select(dim, _mirror_indices(n, r, img.device))
     out = None
     for k, t in enumerate(taps.tolist()):
         term = padded.narrow(dim, k, n) * t
@@ -83,9 +94,7 @@ def _stencil_1d(img: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
 def gaussian_blur(img: torch.Tensor, sigma: float,
                   radius: int | None = None) -> torch.Tensor:
     """Separable Gaussian blur of a (..., H, W) float32 stack."""
-    if img.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("gaussian_blur needs full f32 products: "
-                           "torch.backends.cuda.matmul.allow_tf32 is on")
+    check_f32_matmul(img, "gaussian_blur")
     h, w = img.shape[-2], img.shape[-1]
     if max(h, w) <= _MATMUL_MAX_DIM:
         dev = str(img.device)

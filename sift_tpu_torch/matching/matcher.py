@@ -25,20 +25,15 @@ from sift_tpu_torch.config import MatchConfig
 from sift_tpu_torch.frontend.extrema import top_k_stable
 from sift_tpu_torch.kernels.cuda import match as match_kernel
 from sift_tpu_torch.types import Keypoints, Matches
+from sift_tpu_torch.utils.device import check_f32_matmul
 
 _BIG = 1e30
 _STREAMING_MIN_PAIRS = 4096 * 4096
 
 
-def _check_f32_matmul(x: torch.Tensor) -> None:
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("matching needs full f32 products: "
-                           "torch.backends.cuda.matmul.allow_tf32 is on")
-
-
 def pairwise_sqdist(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """Squared L2 distances (Na, Nb) = |a|^2 + |b|^2 - 2 a.b^T, clamped at 0."""
-    _check_f32_matmul(desc_a)
+    check_f32_matmul(desc_a, "matching")
     a2 = (desc_a * desc_a).sum(dim=-1, keepdim=True)             # (Na, 1)
     b2 = (desc_b * desc_b).sum(dim=-1, keepdim=True).T           # (1, Nb)
     ab = desc_a @ desc_b.T
@@ -78,7 +73,7 @@ def _distances(desc_a: torch.Tensor, desc_b: torch.Tensor,
     "l2q8": squared L2 from int8-quantized descriptors.
     """
     if metric == "l2q8":
-        _check_f32_matmul(desc_a)
+        check_f32_matmul(desc_a, "matching")
         qa, sa = _quantize_int8(desc_a)
         qb, sb = _quantize_int8(desc_b)
         ab = (qa @ qb.T) * (sa * sb)
@@ -86,7 +81,7 @@ def _distances(desc_a: torch.Tensor, desc_b: torch.Tensor,
         b2 = ((qb * sb) ** 2).sum(dim=-1, keepdim=True).T
         return torch.clamp_min(a2 + b2 - 2.0 * ab, 0.0)
     if metric == "dot":
-        _check_f32_matmul(desc_a)
+        check_f32_matmul(desc_a, "matching")
         ab = _unit(desc_a) @ _unit(desc_b).T
         return torch.clamp_min(2.0 - 2.0 * ab, 0.0)
     if metric != "l2":

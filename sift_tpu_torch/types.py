@@ -95,3 +95,30 @@ class TwoViewEstimate:
 
     def to_numpy(self) -> "TwoViewEstimate":
         return _to_numpy(self)
+
+
+@dataclasses.dataclass
+class MapState:
+    """SLAM/SfM map: fixed-capacity cameras, landmarks, observation graph.
+
+    poses:      (C, 6)  se(3) tangent (world-from-camera as (rot, trans) log).
+    intrinsics: (4,)    fx, fy, cx, cy (shared pinhole).
+    landmarks:  (L, 3)  world points.
+    obs_cam:    (O,)    int32 camera index per observation.
+    obs_lm:     (O,)    int32 landmark index per observation.
+    obs_uv:     (O, 2)  measured pixel coordinates.
+    *_valid:    masks for each capacity axis.
+    """
+
+    poses: torch.Tensor
+    intrinsics: torch.Tensor
+    landmarks: torch.Tensor
+    obs_cam: torch.Tensor
+    obs_lm: torch.Tensor
+    obs_uv: torch.Tensor
+    pose_valid: torch.Tensor
+    landmark_valid: torch.Tensor
+    obs_valid: torch.Tensor
+
+    def replace(self, **kw) -> "MapState":
+        return dataclasses.replace(self, **kw)

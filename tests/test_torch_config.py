@@ -86,6 +86,9 @@ def test_import_pulls_in_no_jax():
             "import sift_tpu_torch.matching, sift_tpu_torch.geometry\n"
             "import sift_tpu_torch.cli, sift_tpu_torch.kernels.cuda.match\n"
             "import sift_tpu_torch.io.image, sift_tpu_torch.io.viz\n"
+            "import sift_tpu_torch.ba, sift_tpu_torch.ba.pose_only\n"
+            "import sift_tpu_torch.ba.intrinsics, sift_tpu_torch.io.synthetic\n"
+            "import sift_tpu_torch.geometry.sim3, sift_tpu_torch.geometry.lie_np\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'sift_tpu')\n"
             "       or m.startswith(('jax.', 'jaxlib', 'flax.', 'sift_tpu.'))]\n"
             "print(repr(bad))\n")
