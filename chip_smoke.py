@@ -68,8 +68,28 @@ Phases, each fatal on failure:
      for the window, 2 for the map) must agree within the BA_*
      tolerances; time an LM iteration and a CG matvec with CUDA events,
      and write each case's profiled run to OUT_DIR.
+  9. drive the SfM loop: (a) `cli.main(["sfm", <TUM fixture>, "--format",
+     "tum", "--traj", ...])` on the card (10 RGB-D frames at 640x480):
+     rc 0, 10 trajectory rows, se3-aligned ATE < 0.05 m, launches 8/8/8/0;
+     (b) `SfmPipeline(TUM freiburg1 intrinsics, PipelineConfig(), seed=0)
+     .process_sequence(frames, batch=8)` on a rendered 96-frame 640x480
+     monocular uint8 sequence (`make_sfm_sequence`: the TUM fixture's two
+     planes at 2.0 and 3.5 m, 3 cm a frame along x), launches 48/48/48/0;
+     the state must be "tracking", the tracked share, sim3 ATE and
+     keyframe count within the bounds set from the JAX package's run on
+     the same frames (SFM_JAX_*); a keyframe's keypoints must relocalize
+     against itself through the global index and the batched probe; the
+     first chunk's kernel calls are held against their plain versions as
+     in phase 4; a warm second pass gives
+     frames/s, the median ms of a tracked frame that is not promoted and
+     of a promotion, and extraction ms a chunk; a third pass counts each
+     tracked frame's host syncs (`count_syncs`, printed, no threshold),
+     counts the operator calls of one tracking stage, and profiles one
+     warm chunk (device busy share; operator table in
+     `chiprun_out/chip_smoke_sfm_profile.txt`).
 Then it prints one `kernels` JSON line (with each kernel's launches on
-the twoview path as `launches_twoview`), the card line, and as its last
+the twoview path as `launches_twoview` and on phase 9b's sequence as
+`launches_sfm`), the card line, and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
 CUDA card or no `sift_tpu_torch` beside it.
@@ -163,6 +183,27 @@ MAP_C, MAP_L, MAP_OBS_PER_CAM = 256, 32768, 1024
 BA_RMSE_RTOL, BA_STATE_RTOL, BA_CG_SLACK = 1e-4, 1e-3, 2
 BA_KEYS = ("poses_init", "intrinsics", "landmarks_init", "obs_cam", "obs_lm",
            "obs_uv", "obs_valid")
+# Phase 9: the SfM loop. (a) `cli sfm` on the TUM fixture (10 RGB-D frames,
+# 640x480; ATE bound of tests/e2e/test_real_format_fixtures.py). (b) a
+# rendered monocular sequence at 640x480 with TUM freiburg1 intrinsics:
+# the fixture's scene (planes at 2.0 and 3.5 m, 3 cm a frame along x),
+# 96 frames, default PipelineConfig, process_sequence(batch=8).
+SFM_CLI_LAUNCHES = {"gather_windows": 8, "refine_walk": 8,
+                    "descriptor_accumulate": 8, "streaming_top2": 0}
+SFM_CLI_ATE = 0.05
+SFM_FRAMES, SFM_H, SFM_W, SFM_BATCH = 96, 480, 640, 8
+SFM_INTRINSICS = TUM_FR1_INTRINSICS
+SFM_Z_TOP, SFM_Z_BOT, SFM_STEP = 2.0, 3.5, 0.03
+SFM_LAUNCHES = {"gather_windows": 48, "refine_walk": 48,
+                "descriptor_accumulate": 48, "streaming_top2": 0}
+# The reference: the JAX package's SfmPipeline (default PipelineConfig,
+# seed 0, process_sequence with batch 8) on the same 96 frames, run once
+# on a CPU (JAX_PLATFORMS=cpu): state "tracking", bootstrap at frame 2,
+# keyframes at frames 0, 2, 12, 22, ..., 92, 1186 landmarks, and the
+# sim3-aligned ATE against the rendered ground truth below.
+SFM_JAX_ATE, SFM_JAX_TRACKED, SFM_JAX_KEYFRAMES = 0.00026056717071732235, \
+    1.0, 11
+SFM_PROFILED_CHUNK = 5          # the chunk of frames 40-47, warm
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -188,6 +229,33 @@ def make_textured(h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
               for dx in range(5)) / 25.0
     img = (img - img.min()) / (img.max() - img.min()) * 255.0
     return img.astype(np.float32)[None]
+
+
+def make_sfm_sequence(n: int = SFM_FRAMES, h: int = SFM_H, w: int = SFM_W):
+    """Phase 9's monocular sequence, rendered as `tools/gen_fixtures.py`'s
+    `_render` renders the TUM fixture: two fronto-parallel planes (top half
+    at SFM_Z_TOP, bottom half at SFM_Z_BOT metres), the camera moving
+    SFM_STEP metres a frame along +x, each plane's texture shifted by
+    fx * tx / z pixels with linear interpolation. The textures are two
+    row bands of one `make_textured` image, wide enough for the whole
+    motion. Returns (uint8 frames (n, h, w), ground-truth centres (n, 3))."""
+    fx = SFM_INTRINSICS[0]
+    span = int(np.ceil(fx * SFM_STEP * n / SFM_Z_TOP)) + w + 48
+    tex = make_textured(2 * (h - h // 2) + 16, span)[0].astype(np.float64)
+    bands = (tex[:h // 2], tex[-(h - h // 2):])
+    frames = np.empty((n, h, w), np.uint8)
+    for i in range(n):
+        rows = []
+        for band, z in zip(bands, (SFM_Z_TOP, SFM_Z_BOT)):
+            cols = np.clip(np.arange(w) + fx * SFM_STEP * i / z + 40.0, 0,
+                           band.shape[1] - 2)
+            c0 = np.floor(cols).astype(int)
+            f = cols - c0
+            rows.append(band[:, c0] * (1 - f) + band[:, c0 + 1] * f)
+        frames[i] = np.clip(np.round(np.concatenate(rows)), 0, 255)
+    gt = np.zeros((n, 3))
+    gt[:, 0] = SFM_STEP * np.arange(n)
+    return frames, gt
 
 
 def true_homography(h: int, w: int) -> np.ndarray:
@@ -1259,6 +1327,261 @@ def ba_phase(torch, card: str) -> dict:
     }
 
 
+def sfm_cli_phase(torch, here: str) -> dict:
+    """Phase 9a: `cli sfm` on the TUM fixture on the card; returns the
+    launch counts of that run."""
+    import io
+    from sift_tpu_torch import cli
+    from sift_tpu_torch.kernels import cuda as kcuda
+
+    traj = os.path.join(here, OUT_DIR, "chip_smoke_sfm_tum_traj.txt")
+    out = io.StringIO()
+    kcuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["sfm", os.path.join(here, TUM_DIR), "--format", "tum",
+                       "--traj", traj])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kcuda.launch_counts()
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"phase 9a cli sfm: {line}", flush=True)
+    print(f"phase 9a: rc {rc} in {dt:.3f} s (first run, kernels built), "
+          f"launches {launches}", flush=True)
+    if rc != 0 or "ATE RMSE (se3-aligned)" not in text:
+        raise Failed(f"cli sfm on the TUM fixture: rc {rc}")
+    ate = float(text.split("ATE RMSE")[1].split(":")[1].split("m")[0])
+    rows = np.loadtxt(traj)
+    if rows.shape != (10, 3) or not np.isfinite(rows).all():
+        raise Failed(f"cli sfm trajectory has shape {rows.shape}")
+    if ate >= SFM_CLI_ATE:
+        raise Failed(f"cli sfm ATE {ate} m >= {SFM_CLI_ATE} m")
+    if launches != SFM_CLI_LAUNCHES:
+        raise Failed(f"phase 9a launch counts {launches} != "
+                     f"{SFM_CLI_LAUNCHES}")
+    return launches
+
+
+def timed_tracking(torch, pipe, times: dict, syncs=None):
+    """Wrap `pipe._tracking_step` to append each frame's wall seconds to
+    times["promoted"], times["tracked"] (tracked, not promoted) or
+    times["lost"]; with `syncs` (a list), count each frame's host syncs
+    (`count_syncs`) and append (kind, sites)."""
+    orig = pipe._tracking_step
+
+    def step(kp_dev, depth=None):
+        held = {}
+        t0 = time.perf_counter()
+        if syncs is None:
+            held["out"] = orig(kp_dev, depth)
+            sites = None
+        else:
+            sites = count_syncs(torch, lambda: held.setdefault(
+                "out", orig(kp_dev, depth)))
+        dt = time.perf_counter() - t0
+        out = held["out"]
+        kind = "promoted" if out["is_keyframe"] else \
+            "tracked" if out["tracked"] else "lost"
+        times.setdefault(kind, []).append(dt)
+        if syncs is not None:
+            syncs.append((kind, sites))
+        return out
+
+    pipe._tracking_step = step
+
+
+def track_local_ops(torch, pipe, args) -> str:
+    """Replay `pipe._track_local(*args)` under the profiler; count the
+    outermost PyTorch operator calls, and those made inside
+    `pose_ransac_refine`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import sift_tpu_torch.slam.pipeline as sp
+
+    refine = sp.pose_ransac_refine
+
+    def marked(*a, **k):
+        with record_function("pose_ransac_refine"):
+            return refine(*a, **k)
+
+    sp.pose_ransac_refine = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            pipe._track_local(*args).cpu()
+    finally:
+        sp.pose_ransac_refine = refine
+
+    def inside(e, name):
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+            if e.name == name:
+                return True
+        return False
+
+    ops = [e for e in prof.events() if e.name.startswith("aten::") and not (
+        e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::"))]
+    n_pose = sum(inside(e, "pose_ransac_refine") for e in ops)
+    return f"{len(ops)}, {n_pose} of them in pose_ransac_refine"
+
+
+def sfm_phase(torch, card: str) -> tuple:
+    """Phase 9: the SfM loop on the card. (a) `cli sfm` on the TUM fixture;
+    (b) `process_sequence` on the rendered 96-frame 640x480 monocular
+    sequence with the default `PipelineConfig`. Returns (launch counts of
+    (b), {kernel: max abs err on (b)'s first chunk})."""
+    from sift_tpu_torch.config import PipelineConfig
+    from sift_tpu_torch.eval.ate import ate_rmse
+    from sift_tpu_torch.kernels import cuda as kcuda
+    from sift_tpu_torch.kernels.cuda import descriptor
+    from sift_tpu_torch.slam.pipeline import SfmPipeline
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sfm_cli_phase(torch, here)
+
+    t0 = time.perf_counter()
+    frames, gt = make_sfm_sequence()
+    frames = list(frames)
+    print(f"phase 9b: {len(frames)} frames of {SFM_H}x{SFM_W} rendered in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = PipelineConfig()
+    pipe = SfmPipeline(SFM_INTRINSICS, cfg, seed=0)
+    with recording(extraction_kernels()) as (recorded, originals):
+        kcuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = pipe.process_sequence(frames, batch=SFM_BATCH)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = kcuda.launch_counts()
+        first_chunk = {name: calls[:4] for name, calls in recorded.items()}
+        recorded.clear()
+    tracked = float(np.mean([r["tracked"] for r in res]))
+    est = pipe.positions()
+    if est.shape != (SFM_FRAMES, 3) or not np.isfinite(est).all():
+        raise Failed(f"sfm positions {est.shape} not finite")
+    ate = ate_rmse(est, gt, align=True, with_scale=True)
+    n_kf = len(pipe.keyframes)
+    boot = next(i for i, r in enumerate(res) if r["state"] == "tracking")
+    print(f"phase 9b: state {pipe.state}, bootstrap at frame {boot}, tracked "
+          f"share {tracked:.4f} (JAX {SFM_JAX_TRACKED}), keyframes {n_kf} at "
+          f"{[r['frame_idx'] for r in res if r['is_keyframe']]} (JAX "
+          f"{SFM_JAX_KEYFRAMES}), landmarks {pipe.landmarks.shape[0]}, sim3 "
+          f"ATE {ate:.6f} m (JAX {SFM_JAX_ATE:.6f} m); first pass {first_s:.3f}"
+          f" s; launches {launches}", flush=True)
+    if pipe.state != "tracking":
+        raise Failed(f"sfm ended in state {pipe.state}")
+    if tracked < max(0.9, SFM_JAX_TRACKED - 0.05):
+        raise Failed(f"sfm tracked share {tracked}")
+    if ate > max(1.5 * SFM_JAX_ATE, SFM_JAX_ATE + 0.01):
+        raise Failed(f"sfm ATE {ate} m against JAX's {SFM_JAX_ATE} m")
+    if abs(n_kf - SFM_JAX_KEYFRAMES) > 0.2 * SFM_JAX_KEYFRAMES:
+        raise Failed(f"sfm made {n_kf} keyframes, JAX {SFM_JAX_KEYFRAMES}")
+    if launches != SFM_LAUNCHES:
+        raise Failed(f"phase 9b launch counts {launches} != {SFM_LAUNCHES}")
+
+    # Relocalization on the card (no frame of the sequence loses
+    # tracking): a keyframe's own keypoints against the keyframes the
+    # global index votes for, probed in one batch.
+    probe = len(pipe.keyframes) - 2
+    hit = pipe._attempt_relocalization(pipe.keyframes[probe].kp)
+    if hit is None:
+        raise Failed(f"keyframe {probe} did not relocalize")
+    n_inl = int(hit[3].sum())
+    dpose = float(np.abs(hit[1] - pipe.keyframes[probe].pose).max())
+    print(f"phase 9b relocalization of keyframe {probe}'s keypoints: against "
+          f"keyframe {hit[0]}, {n_inl} inliers, pose within {dpose:.2e} of "
+          "the keyframe's", flush=True)
+    if hit[0] != probe or n_inl < cfg.keyframe_min_inliers or dpose > 1e-2:
+        raise Failed("relocalization on the card")
+
+    # The first chunk's kernel calls against their plain versions.
+    plain = extraction_plain()
+    errs = {}
+    for name, calls in first_chunk.items():
+        errs[name] = 0.0
+        for args in calls:
+            got, want = originals[name](*args), plain[name](*args)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], hold_extraction_kernel(
+                torch, descriptor.TOLERANCE, name, got, want)[0])
+        print(f"phase 9b {name}: {len(calls)} calls of the first chunk held "
+              f"against plain, max_abs_err {errs[name]:.3g}", flush=True)
+    del first_chunk
+
+    # Warm second pass: frames/s, per-frame and per-chunk times.
+    pipe = SfmPipeline(SFM_INTRINSICS, cfg, seed=0)
+    times, chunk_ev = {}, []
+    timed_tracking(torch, pipe, times)
+    orig_extract = pipe._extract_batch
+
+    def extract(imgs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        kp = orig_extract(imgs)
+        ev[1].record()
+        chunk_ev.append(ev)
+        return kp
+
+    pipe._extract_batch = extract
+    t0 = time.perf_counter()
+    res2 = pipe.process_sequence(frames, batch=SFM_BATCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ext_ms = [a.elapsed_time(b) for a, b in chunk_ev]
+    ate2 = ate_rmse(pipe.positions(), gt, align=True, with_scale=True)
+    med = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    print(f"phase 9b warm pass: {SFM_FRAMES / warm_s:.3f} frames/s "
+          f"({warm_s:.3f} s for {SFM_FRAMES} frames), keyframes "
+          f"{len(pipe.keyframes)}, ATE {ate2:.6f} m; median ms of a tracked "
+          f"frame that is not promoted {med.get('tracked', float('nan')):.3f} "
+          f"(n={len(times.get('tracked', []))}, min "
+          f"{1e3 * min(times.get('tracked', [np.nan])):.3f}, max "
+          f"{1e3 * max(times.get('tracked', [np.nan])):.3f}); median ms of a "
+          f"promotion with its window BA {med.get('promoted', float('nan')):.3f}"
+          f" (n={len(times.get('promoted', []))}); extraction "
+          f"{np.median(ext_ms):.3f} ms a chunk (CUDA events, median of "
+          f"{len(ext_ms)}; min {min(ext_ms):.3f}, max {max(ext_ms):.3f}); "
+          f"card {card}", flush=True)
+    if [r["is_keyframe"] for r in res2] != [r["is_keyframe"] for r in res]:
+        print("phase 9b: the warm pass promoted other frames than the "
+              "first", flush=True)
+
+    # Third pass to the profiled chunk: host syncs of each tracked frame,
+    # then one warm chunk under the profiler.
+    pipe = SfmPipeline(SFM_INTRINSICS, cfg, seed=0)
+    syncs, last = [], {}
+    timed_tracking(torch, pipe, {}, syncs)
+    stage = pipe._track_local
+
+    def keep_args(*a):
+        last["args"] = a
+        return stage(*a)
+
+    pipe._track_local = keep_args
+    pipe.process_sequence(frames[:SFM_PROFILED_CHUNK * SFM_BATCH],
+                          batch=SFM_BATCH)
+    counts = [len(s) for kind, s in syncs if kind == "tracked"]
+    sites = next((s for kind, s in syncs if kind == "tracked"), [])
+    promo = [s for kind, s in syncs if kind == "promoted"]
+    print(f"phase 9b host syncs of a tracked frame that is not promoted: "
+          f"{int(np.median(counts)) if counts else 'none tracked'} (per frame "
+          f"{counts}; sites of the first {sorted(sites)}); of a promotion: "
+          f"{[len(s) for s in promo]} (sites of the first "
+          f"{sorted(promo[0]) if promo else []})", flush=True)
+    del pipe._tracking_step, pipe._track_local   # the class's methods
+    print(f"phase 9b operator calls of one tracking stage (`_track_local`): "
+          f"{track_local_ops(torch, pipe, last['args'])}", flush=True)
+    lo = SFM_PROFILED_CHUNK * SFM_BATCH
+    busy_ms, wall_ms = profile_busy(
+        torch, lambda: (pipe.process_sequence(frames[lo:lo + SFM_BATCH],
+                                              batch=SFM_BATCH),
+                        torch.cuda.synchronize()),
+        "chip_smoke_sfm_profile.txt", card)
+    print(f"phase 9b profiled warm chunk (frames {lo}-{lo + SFM_BATCH - 1}): "
+          f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall, busy share "
+          f"{busy_ms / wall_ms:.4f}; card {card}", flush=True)
+    return launches, errs
+
+
 def finish(torch, card: str) -> int:
     """Print the card line and, as the last line, the result."""
     print(f"card: {card}", flush=True)
@@ -1469,11 +1792,14 @@ def main() -> int:
     try:
         twoview_launches = twoview_phase(torch, card)
         ba_phase(torch, card)
+        sfm_launches, sfm_err = sfm_phase(torch, card)
     except Failed as e:
         return fail(str(e))
     size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
     for r in rows:
         r["launches_twoview"] = twoview_launches[r["name"]]
+        r["launches_sfm"] = sfm_launches[r["name"]]
+        r["max_abs_err_sfm"] = sfm_err[r["name"]]
         r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
         if r["name"] in at_size:
             t = at_size[r["name"]]
@@ -1485,6 +1811,7 @@ def main() -> int:
         if r["name"] == "descriptor_accumulate":
             r.update({"deterministic": True, "sass_atomics": len(atomics)})
     row["launches_twoview"] = twoview_launches["streaming_top2"]
+    row["launches_sfm"] = sfm_launches["streaming_top2"]
     rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)

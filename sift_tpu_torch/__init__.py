@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of sift_tpu: the SIFT frontend, two-image matching
-(`matching`, `cli match`), two-view geometry (`geometry`, `cli twoview`)
-and bundle adjustment (`ba`).
+(`matching`, `cli match`), two-view geometry (`geometry`, `cli twoview`),
+bundle adjustment (`ba`) and the incremental SfM loop's default path
+(`slam`, `cli sfm`).
 
 Imports torch and numpy only, never JAX or the `sift_tpu` package. Entry
 points run on the card unless the caller passes `device="cpu"` or CPU

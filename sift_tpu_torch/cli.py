@@ -1,19 +1,26 @@
 """Command line of the PyTorch port (counterpart of `sift_tpu/cli.py`,
-`match` and `twoview` subcommands).
+`match`, `twoview` and `sfm` subcommands).
 
     python -m sift_tpu_torch.cli match a.png b.png [--device cuda|cpu]
     python -m sift_tpu_torch.cli twoview a.png b.png [--fx F --fy F
         --cx C --cy C] [--device cuda|cpu]
+    python -m sift_tpu_torch.cli sfm <sequence> [--format tum|kitti]
+        [--traj out.txt] [--device cuda|cpu]
 
 `match` extracts both images (lowe mode), matches their descriptors (ratio
 test, mutual), and verifies the matches with homography RANSAC. `twoview`
 extracts and matches the same way, normalizes the matched pixels by the
 intrinsics (default: focal = the larger image side, principal point at
 the centre) and estimates the camera-B-from-camera-A pose (5-point
-essential RANSAC, cheirality, Gauss-Newton polish). Both take the JAX
-command's flags and print its output lines. `--device` (default `cuda`)
-picks where everything runs; RANSAC draws from a `torch.Generator` seeded
-with 0 on that device.
+essential RANSAC, cheirality, Gauss-Newton polish). `sfm` runs the
+incremental SfM/SLAM loop (`slam/pipeline.py::SfmPipeline`) over a TUM-RGBD
+sequence (RGB-D unless `--no-depth`) or a KITTI odometry sequence
+(monocular) and reports ATE and RPE against the ground truth. Each takes
+the JAX command's flags and prints its output lines; the JAX `sfm` flags
+whose paths are not ported (`--chunked`, `--ba-async`, `--loop-closure`,
+`--sim3`, `--compact-every`, `--global-ba`, `--stereo`, `--plot`) raise
+`NotImplementedError`. `--device` (default `cuda`) picks where everything
+runs; RANSAC draws from a `torch.Generator` seeded with 0 on that device.
 """
 
 from __future__ import annotations
@@ -216,10 +223,108 @@ def cmd_twoview(args) -> int:
     return 0 if success else 1
 
 
+_SFM_REFUSED = (("chunked", "--chunked"), ("ba_async", "--ba-async"),
+                ("loop_closure", "--loop-closure"), ("sim3", "--sim3"),
+                ("compact_every", "--compact-every"),
+                ("global_ba", "--global-ba"), ("stereo", "--stereo"),
+                ("plot", "--plot"))
+
+
+def cmd_sfm(args) -> int:
+    """Incremental SfM over an image sequence (TUM-RGBD or KITTI)."""
+    import torch
+
+    from sift_tpu_torch.config import PipelineConfig
+    from sift_tpu_torch.eval.ate import (ate_rmse, poses_from_Rt, rpe_rmse,
+                                         rpe_rmse_poses, umeyama_alignment)
+    from sift_tpu_torch.io.datasets import load_kitti_odometry, load_tum_rgbd
+    from sift_tpu_torch.slam.pipeline import SfmPipeline
+    from sift_tpu_torch.utils.metrics import MetricsLogger
+
+    for attr, flag in _SFM_REFUSED:
+        if getattr(args, attr):
+            raise NotImplementedError(f"sfm {flag} is not ported")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.format == "tum":
+        seq = load_tum_rgbd(args.path, max_frames=args.max_frames,
+                            stride=args.stride)
+    else:
+        seq = load_kitti_odometry(args.path, sequence=args.sequence,
+                                  max_frames=args.max_frames,
+                                  stride=args.stride)
+
+    logger = MetricsLogger(args.metrics) if args.metrics else None
+    kw = {}
+    if args.window:
+        kw["window_size"] = args.window
+    pipe = SfmPipeline(seq.intrinsics, PipelineConfig(**kw), logger=logger,
+                       device=args.device)
+    use_depth = args.format == "tum" and not args.no_depth
+    t0 = time.perf_counter()
+    if args.batch > 1:
+        results = pipe.process_sequence(
+            [f.gray for f in seq],
+            depths=[f.depth for f in seq] if use_depth else None,
+            batch=args.batch)
+    else:
+        results = [pipe.process_frame(f.gray,
+                                      depth=f.depth if use_depth else None)
+                   for f in seq]
+        pipe.finalize()
+    if args.verbose:
+        for r in results:
+            print(f"frame {r['frame_idx']}: tracked={r['tracked']} "
+                  f"kf={r['is_keyframe']} inliers={r['n_inliers']}")
+    dt = time.perf_counter() - t0
+    print(f"{len(seq)} frames in {dt:.1f}s ({len(seq)/dt:.1f} fps), "
+          f"{len(pipe.keyframes)} keyframes, "
+          f"{pipe.landmarks.shape[0]} landmarks")
+
+    gt = seq.gt_positions()
+    if gt is not None and len(pipe.trajectory) == gt.shape[0]:
+        # RGB-D trajectories are metric (rigid alignment); monocular ones
+        # are scale-free (similarity alignment). One alignment serves ATE
+        # and RPE.
+        metric = use_depth
+        est = np.asarray(pipe.positions(), np.float64)
+        gt64 = np.asarray(gt, np.float64)
+        s, R, t = umeyama_alignment(est, gt64, with_scale=not metric)
+        est_aligned = (s * (R @ est.T)).T + t
+        ate = ate_rmse(est_aligned, gt64, align=False)
+        kind = "se3" if metric else "sim3"
+        print(f"ATE RMSE ({kind}-aligned): {ate:.4f} m")
+        gtT = seq.gt_poses()
+        if gtT is not None:
+            Rs, ts = pipe.poses_Rt()
+            rpe = rpe_rmse_poses(poses_from_Rt(Rs, ts), gtT, delta=1, scale=s)
+            print(f"RPE RMSE (TUM, delta=1): {rpe:.4f} m")
+        else:
+            rpe = rpe_rmse(est_aligned, gt64, delta=1)
+            print(f"RPE RMSE (position-delta, delta=1, {kind}-aligned): "
+                  f"{rpe:.4f} m")
+    if args.traj:
+        if args.traj_format == "tum":
+            from sift_tpu_torch.io.trajectory import save_tum
+            Rs, ts = pipe.poses_Rt()
+            stamps = [f.timestamp for f in seq][:ts.shape[0]]
+            save_tum(args.traj, Rs, ts, timestamps=stamps)
+        else:
+            np.savetxt(args.traj, pipe.positions())
+        print(f"wrote {args.traj}")
+    if args.ply:
+        from sift_tpu_torch.io.trajectory import save_ply
+        lms = pipe.landmarks
+        finite = np.isfinite(lms).all(axis=1)
+        save_ply(args.ply, lms[finite])
+        print(f"wrote {args.ply} ({int(finite.sum())} points)")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     top = argparse.ArgumentParser(
         prog="sift-tpu-torch",
-        description="PyTorch/CUDA port of sift-tpu (match and twoview "
+        description="PyTorch/CUDA port of sift-tpu (match, twoview and sfm "
                     "subcommands)")
     sub = top.add_subparsers(dest="command")
     pm = sub.add_parser("match", help="extract + match two images")
@@ -251,6 +356,41 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where to run: cuda (default) or cpu")
     _add_reference_flags(pt)
     pt.set_defaults(func=cmd_twoview)
+
+    ps = sub.add_parser("sfm", help="incremental SfM over a sequence")
+    ps.add_argument("path", help="sequence directory (TUM) or dataset root "
+                                 "(KITTI)")
+    ps.add_argument("--format", choices=("tum", "kitti"), default="tum")
+    ps.add_argument("--sequence", default="00", help="KITTI sequence id")
+    ps.add_argument("--max-frames", type=int)
+    ps.add_argument("--stride", type=int, default=1)
+    ps.add_argument("--metrics", help="JSONL metrics output path")
+    ps.add_argument("--no-depth", action="store_true",
+                    help="ignore TUM depth maps (pure monocular)")
+    ps.add_argument("--batch", type=int, default=8,
+                    help="frontend extraction batch size (1 = per-frame)")
+    ps.add_argument("--traj", help="write trajectory positions to this file")
+    ps.add_argument("--traj-format", choices=["xyz", "tum"], default="xyz",
+                    help="trajectory file dialect: bare xyz rows, or the "
+                         "TUM grammar (ts tx ty tz qx qy qz qw)")
+    ps.add_argument("--ply", help="write the sparse landmark map as an "
+                                  "ASCII PLY point cloud")
+    ps.add_argument("--verbose", action="store_true")
+    ps.add_argument("--window", type=int, default=None,
+                    help="sliding BA window size (keyframes)")
+    ps.add_argument("--device", default="cuda",
+                    help="where to run: cuda (default) or cpu")
+    # The JAX command's options whose paths are not ported: refused.
+    ps.add_argument("--stereo", action="store_true", help="not ported")
+    ps.add_argument("--plot", help="not ported")
+    ps.add_argument("--chunked", action="store_true", help="not ported")
+    ps.add_argument("--ba-async", action="store_true", help="not ported")
+    ps.add_argument("--loop-closure", action="store_true", help="not ported")
+    ps.add_argument("--sim3", action="store_true", help="not ported")
+    ps.add_argument("--compact-every", type=int, default=0, metavar="N",
+                    help="not ported")
+    ps.add_argument("--global-ba", action="store_true", help="not ported")
+    ps.set_defaults(func=cmd_sfm)
     return top
 
 

@@ -1,7 +1,7 @@
 """Configuration of the PyTorch port.
 
-Copies of `sift_tpu.config.SiftConfig`, `MatchConfig`, `RansacConfig` and
-`BAConfig` (same fields, defaults and checks), kept here so that
+Copies of `sift_tpu.config.SiftConfig`, `MatchConfig`, `RansacConfig`,
+`BAConfig` and `PipelineConfig` (same fields, defaults and checks), kept here so that
 importing the port never imports the JAX package. The system has no learned weights: the
 configuration, and the blur operators and sigma tables derived from it,
 are all that crosses from the JAX package. `config_from_dict` takes
@@ -124,15 +124,119 @@ class BAConfig:
         return dataclasses.replace(self, **kw)
 
 
-_CONFIGS = (SiftConfig, MatchConfig, RansacConfig, BAConfig)
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Top-level SLAM/SfM pipeline configuration. The port runs the
+    default path; `SfmPipeline` refuses, with `NotImplementedError`, the
+    options it does not port (`enable_loop_closure`, `pose_graph_sim3`,
+    `chunked_tracking`, `ba_async`, `ba_defer_kickoff`,
+    `compact_interval_kf > 0`)."""
+
+    sift: SiftConfig = SiftConfig()
+    match: MatchConfig = MatchConfig()
+    ransac: RansacConfig = RansacConfig()
+    ba: BAConfig = BAConfig()
+
+    window_size: int = 8            # sliding BA window (keyframes)
+    keyframe_min_inliers: int = 30
+
+    # Window-BA static capacities (window observations/landmarks are
+    # padded up to these, in three buckets).
+    ba_max_landmarks: int = 2048
+    ba_max_observations: int = 8192
+
+    # Tracking-time window BA budget (promotions warm-start from the
+    # previous window's solution); the full cfg.ba budget runs at
+    # bootstrap. 0 = the full budget everywhere.
+    ba_tracking_iterations: int = 8
+    ba_tracking_cg: int = 20
+
+    # Per-frame tracking localization budget (pose_ransac_refine):
+    # hypothesis count and GN iterations per fit.
+    tracking_ransac_hypotheses: int = 8
+    tracking_gn_iters: int = 8
+
+    # Deferred window BA (not ported).
+    ba_async: bool = False
+    # Device-resident chunked tracking (not ported).
+    chunked_tracking: bool = False
+    # Extraction of the next chunk before the current chunk's read; the
+    # port has no separate read to hide, so this is carried for field
+    # parity only.
+    extract_ahead: bool = True
+    # Deferred window-BA kickoff of the chunked tracker (not ported).
+    ba_defer_kickoff: bool = False
+
+    # Bootstrap / keyframe policy.
+    min_bootstrap_matches: int = 40
+    min_bootstrap_parallax: float = 8.0   # px, median flow before two-view init
+    # Independent H-vs-E RANSAC attempts per bootstrap try, selected by
+    # triangulation health.
+    boot_attempts: int = 4
+    # A homography-selected bootstrap must see this multiple of the
+    # parallax gate before being trusted.
+    h_parallax_factor: float = 2.0
+    kf_min_tracked: int = 60              # new keyframe when tracked lms drop below
+    kf_max_interval: int = 10             # ... or this many frames elapsed
+    min_triangulation_angle_deg: float = 0.5
+    max_reproj_error_px: float = 3.0
+
+    # RGB-D: accepted depth range in meters.
+    depth_min: float = 0.1
+    depth_max: float = 25.0
+
+    # Local-map tracking: associate each frame against the deduplicated
+    # union of landmarks observed by the last `window_size` keyframes.
+    use_local_map: bool = True
+    local_map_size: int = 2048
+
+    # Guided matching radius during tracking, pixels (0 disables).
+    guided_radius: float = 40.0
+
+    # Relocalization after tracking loss.
+    reloc_after_lost: int = 3         # failed frames before attempting
+    reloc_candidates: int = 6         # keyframes probed per attempt
+
+    # Global descriptor index (matching/global_index.py): candidate
+    # keyframes ranked by descriptor votes.
+    use_global_index: bool = True
+    global_index_sim: float = 0.85    # cosine vote threshold
+
+    # Loop closure / pose-graph SLAM (not ported; the index capacity is
+    # max_pose_graph_nodes keyframes).
+    enable_loop_closure: bool = False
+    pose_graph_sim3: bool = False
+    loop_candidates: int = 4
+    loop_min_inliers: int = 40
+    loop_max_rmse: float = 1.0        # px; relocalization accepts 2x this
+    loop_weight: float = 10.0
+    max_pose_graph_nodes: int = 256
+    max_pose_graph_edges: int = 1024
+
+    # Map maintenance every N promotions (not ported; 0 = off).
+    compact_interval_kf: int = 0
+    # Capacity audit of the chunked tracker (carried for field parity).
+    track_saturation: bool = False
+
+    def replace(self, **kw) -> "PipelineConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_CONFIGS = (SiftConfig, MatchConfig, RansacConfig, BAConfig, PipelineConfig)
+_NESTED = {"sift": SiftConfig, "match": MatchConfig, "ransac": RansacConfig,
+           "ba": BAConfig}
 
 
 def config_from_dict(d: dict):
     """Build a port config from `dataclasses.asdict` of a JAX-package
     config: the one of `SiftConfig`, `MatchConfig`, `RansacConfig`,
-    `BAConfig` whose fields hold every key (their field names are
-    disjoint)."""
+    `BAConfig`, `PipelineConfig` whose fields hold every key (their field
+    names are disjoint). A `PipelineConfig`'s nested configs may be dicts
+    too."""
     for cls in _CONFIGS:
         if set(d) <= {f.name for f in dataclasses.fields(cls)}:
+            if cls is PipelineConfig:
+                d = {k: (_NESTED[k](**v) if k in _NESTED and isinstance(v, dict)
+                         else v) for k, v in d.items()}
             return cls(**d)
     raise ValueError(f"no port config has all of the fields {sorted(d)}")

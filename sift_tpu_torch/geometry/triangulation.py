@@ -1,8 +1,13 @@
 """Linear (DLT) two-view triangulation, batched over correspondences
 (counterpart of `sift_tpu/geometry/triangulation.py`).
 
-Each point solves a 4x4 homogeneous system; the batch is one `eigh` over
-(..., N, 4, 4).
+Each point solves a 4x4 homogeneous system: the eigenvector of the
+smallest eigenvalue of its normal matrix, found for the whole batch by a
+fixed number of Jacobi sweeps (`_smallest_eigvec`). `torch.linalg.eigh`
+would read its error codes on the host, a sync per call, and raises
+where the JAX package's `eigh` returns NaN: on non-finite input, and on
+the card (cuSOLVER's batched solver) on degenerate systems such as a
+zero baseline, which a relocalization probe triangulates.
 """
 
 from __future__ import annotations
@@ -10,6 +15,34 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-12
+# Cyclic Jacobi on 4x4 matrices, two disjoint pairs rotated at a time;
+# five sweeps reach f32 precision on random, rank-2 and rank-3 systems.
+_JACOBI_ROUNDS = (((0, 1), (2, 3)), ((0, 2), (1, 3)), ((0, 3), (1, 2)))
+_JACOBI_SWEEPS = 6
+
+
+def _smallest_eigvec(M: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector (..., 4) of the smallest eigenvalue of symmetric
+    (..., 4, 4) M, by `_JACOBI_SWEEPS` cyclic Jacobi sweeps. No convergence
+    test: no host sync and no error; non-finite input gives NaN. Built
+    out of place, so `torch.func.vmap` can batch it."""
+    V = torch.eye(4, dtype=M.dtype, device=M.device).expand(M.shape)
+    zero = torch.zeros_like(M[..., 0, 0])
+    for _ in range(_JACOBI_SWEEPS):
+        for pairs in _JACOBI_ROUNDS:
+            G = [[zero] * 4 for _ in range(4)]
+            for p, q in pairs:
+                # The angle that zeroes M[p, q] in G^T M G.
+                theta = 0.5 * torch.atan2(2.0 * M[..., p, q],
+                                          M[..., q, q] - M[..., p, p])
+                c, s = torch.cos(theta), torch.sin(theta)
+                G[p][p], G[q][q], G[p][q], G[q][p] = c, c, s, -s
+            G = torch.stack([torch.stack(row, -1) for row in G], -2)
+            M = G.transpose(-1, -2) @ M @ G
+            V = V @ G
+    i = torch.argmin(M.diagonal(dim1=-2, dim2=-1), dim=-1)
+    return torch.gather(V, -1, i[..., None, None].expand(
+        V.shape[:-1] + (1,)))[..., 0]
 
 
 def triangulate_dlt(P1: torch.Tensor, P2: torch.Tensor,
@@ -29,8 +62,7 @@ def triangulate_dlt(P1: torch.Tensor, P2: torch.Tensor,
     a2, a3 = rows(P2, x2)
     A = torch.stack(torch.broadcast_tensors(a0, a1, a2, a3), dim=-2)  # (..., N, 4, 4)
     M = A.transpose(-1, -2) @ A                      # normal equations
-    _, vecs = torch.linalg.eigh(M)
-    Xh = vecs[..., 0]                                # (..., N, 4)
+    Xh = _smallest_eigvec(M)                         # (..., N, 4)
     w = Xh[..., 3:]
     return Xh[..., :3] / torch.where(w.abs() < _EPS, _EPS, w)
 

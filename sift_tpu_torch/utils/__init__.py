@@ -1,1 +1,2 @@
-"""Small helpers of the PyTorch port."""
+"""Small helpers of the PyTorch port: device constants, metrics logging
+and profiling (`utils/metrics.py`)."""

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from sift_tpu.config import MatchConfig as JaxMatchConfig
+from sift_tpu.config import PipelineConfig as JaxPipelineConfig
 from sift_tpu.config import RansacConfig as JaxRansacConfig
 from sift_tpu.config import SiftConfig as JaxSiftConfig
 from sift_tpu.frontend.pyramid import lowe_sigma_schedule as jax_schedule
@@ -18,8 +19,8 @@ from sift_tpu.kernels.gaussian import blur_matrix as jax_blur_matrix
 from sift_tpu.kernels.gaussian import gaussian_kernel_1d as jax_taps
 
 import sift_tpu_torch
-from sift_tpu_torch.config import (MatchConfig, RansacConfig, SiftConfig,
-                                   config_from_dict)
+from sift_tpu_torch.config import (MatchConfig, PipelineConfig, RansacConfig,
+                                   SiftConfig, config_from_dict)
 from sift_tpu_torch.frontend.pyramid import lowe_sigma_schedule
 from sift_tpu_torch.frontend.sift import extract_batch
 from sift_tpu_torch.kernels.gaussian import blur_matrix, gaussian_kernel_1d
@@ -66,6 +67,28 @@ def test_config_from_dict_builds_match_and_ransac_configs(jcfg):
     assert config_from_dict(dataclasses.asdict(cfg)) == cfg
 
 
+def test_pipeline_config_fields_and_defaults_match_jax():
+    ours = {f.name: f.default for f in dataclasses.fields(PipelineConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JaxPipelineConfig)}
+    assert list(ours) == list(theirs)
+    assert dataclasses.asdict(PipelineConfig()) == \
+        dataclasses.asdict(JaxPipelineConfig())
+
+
+def test_config_from_dict_builds_pipeline_config():
+    jcfg = JaxPipelineConfig(
+        window_size=6, kf_min_tracked=80, guided_radius=25.0,
+        sift=JaxSiftConfig(max_keypoints=256),
+        match=JaxMatchConfig(ratio=0.85, max_matches=256),
+        ransac=JaxRansacConfig(num_hypotheses=256))
+    cfg = config_from_dict(dataclasses.asdict(jcfg))
+    assert type(cfg) is PipelineConfig
+    assert type(cfg.sift) is SiftConfig and type(cfg.ba).__module__ == \
+        "sift_tpu_torch.config"
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert config_from_dict(dataclasses.asdict(cfg)) == cfg
+
+
 @pytest.mark.parametrize("n,sigma", [(1, 1.6), (7, 1.2), (61, 2.0159),
                                      (600, 1.2489996), (488, 2.5398)])
 def test_blur_matrix_bit_equal(n, sigma):
@@ -89,6 +112,11 @@ def test_import_pulls_in_no_jax():
             "import sift_tpu_torch.ba, sift_tpu_torch.ba.pose_only\n"
             "import sift_tpu_torch.ba.intrinsics, sift_tpu_torch.io.synthetic\n"
             "import sift_tpu_torch.geometry.sim3, sift_tpu_torch.geometry.lie_np\n"
+            "import sift_tpu_torch.slam, sift_tpu_torch.slam.pipeline\n"
+            "import sift_tpu_torch.eval, sift_tpu_torch.eval.ate\n"
+            "import sift_tpu_torch.io.datasets, sift_tpu_torch.io.trajectory\n"
+            "import sift_tpu_torch.matching.global_index\n"
+            "import sift_tpu_torch.utils.metrics\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'sift_tpu')\n"
             "       or m.startswith(('jax.', 'jaxlib', 'flax.', 'sift_tpu.'))]\n"
             "print(repr(bad))\n")

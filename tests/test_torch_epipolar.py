@@ -264,6 +264,50 @@ def test_generator_noise_is_reproducible():
                                         RansacConfig(essential_solver="7pt"))
 
 
+@pytest.mark.parametrize("kind", ["random", "rank2", "rank3"])
+def test_smallest_eigvec_matches_eigh(kind):
+    """The triangulation's fixed-sweep Jacobi against LAPACK's eigh (in
+    float64) on random, rank-2 and rank-3 4x4 normal matrices: the
+    eigen-residual within 1e-6 of the matrix norm, and the eigenvector
+    itself where the two smallest eigenvalues are apart."""
+    from sift_tpu_torch.geometry.triangulation import _smallest_eigvec
+
+    A = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4000, 4, 4)).astype(np.float32))
+    if kind == "rank2":
+        A[:, 2:] = A[:, :2]
+    elif kind == "rank3":
+        A[:, 3] = A[:, 0] + A[:, 1]
+    M = A.transpose(-1, -2) @ A
+    v = _smallest_eigvec(M)
+    lam = (v[:, None, :] @ M @ v[:, :, None])[:, 0, 0]
+    res = ((M @ v[:, :, None])[:, :, 0] - lam[:, None] * v).norm(dim=-1)
+    assert (res / torch.linalg.matrix_norm(M)).max() < 1e-6
+    w, U = torch.linalg.eigh(M.double())
+    apart = (w[:, 1] - w[:, 0]) > 1e-3 * w[:, 3]
+    align = (v.double() * U[:, :, 0]).sum(-1).abs()
+    assert kind == "rank2" or apart.sum() > 3000
+    assert bool((align[apart] > 1 - 1e-5).all())
+
+
+def test_triangulate_dlt_degenerate_and_nonfinite_as_jax():
+    """Where the JAX package's eigh returns NaN (a non-finite projection
+    matrix), the port's triangulation gives NaN too, and a zero baseline
+    (the two cameras equal, as a relocalization probe may triangulate)
+    gives finite points; `torch.linalg.eigh` raised on the first and, on
+    the card, on the second."""
+    xa, xb, _, _ = _two_view(7, n=50)
+    P = np.concatenate([np.eye(3), np.zeros((3, 1))], 1).astype(np.float32)
+    Pn = P.copy()
+    Pn[0, 3] = np.nan
+    X = triangulate_dlt(_t(P), _t(Pn), _t(xa), _t(xb)).numpy()
+    Xj = np.asarray(jax_triangulate(jnp.asarray(P), jnp.asarray(Pn),
+                                    jnp.asarray(xa), jnp.asarray(xb)))
+    assert np.isnan(X).all() and np.isnan(Xj).all()
+    X0 = triangulate_dlt(_t(P), _t(P), _t(xa), _t(xa)).numpy()
+    assert np.isfinite(X0).all()
+
+
 def test_triangulation_and_camera_match_jax():
     xa, xb, R, t = _two_view(5, n=100)
     P1 = np.concatenate([np.eye(3), np.zeros((3, 1))], 1).astype(np.float32)
