@@ -87,9 +87,26 @@ Phases, each fatal on failure:
      counts the operator calls of one tracking stage, and profiles one
      warm chunk (device busy share; operator table in
      `chiprun_out/chip_smoke_sfm_profile.txt`).
+  10. loop closure and map maintenance: (a) `process_sequence(batch=8)` on
+     a rendered 92-frame out-and-back sequence (48 frames out at 3 cm, 44
+     back, phase 9b's scene) with loop closure, the Sim(3) graph and
+     compaction every 10 keyframes on, then `run_global_ba()`, launches
+     48/48/48/0: the keyframe count within 20%, the closures and
+     pose-graph runs, and the sim3 ATE held to the JAX package's CPU run
+     on the same frames (LOOP_JAX_*); the first chunk's kernel calls held
+     against their plain versions; frames/s; (b) keyframe 0's keypoints
+     as a new keyframe with fresh slots must close a loop through the
+     Sim(3) graph and, again, through the SE(3) graph (ms per closure and
+     its promotion's window BA, host syncs per closure); (c) both pose
+     graphs at capacity (256 nodes, 1024 edges, 15 LM x 64 CG steps)
+     under `set_sync_debug_mode("error")`: two card runs bit-identical,
+     the CPU plain path within PGO_CPU_TOL, ms per run, a profiled run's
+     busy share (operator tables in OUT_DIR); (d) `save_map` ->
+     `load_map` on the card gives the same state.
 Then it prints one `kernels` JSON line (with each kernel's launches on
-the twoview path as `launches_twoview` and on phase 9b's sequence as
-`launches_sfm`), the card line, and as its last
+the twoview path as `launches_twoview`, on phase 9b's sequence as
+`launches_sfm` and on phase 10a's as `launches_loop`), the card line,
+and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
 CUDA card or no `sift_tpu_torch` beside it.
@@ -204,6 +221,37 @@ SFM_LAUNCHES = {"gather_windows": 48, "refine_walk": 48,
 SFM_JAX_ATE, SFM_JAX_TRACKED, SFM_JAX_KEYFRAMES = 0.00026056717071732235, \
     1.0, 11
 SFM_PROFILED_CHUNK = 5          # the chunk of frames 40-47, warm
+# Phase 10: loop closure and map maintenance. (a) An out-and-back
+# monocular sequence rendered as phase 9b's (same scene, intrinsics and
+# 640x480): 48 frames out at 3 cm a frame, 44 back to x = 6 cm (the shape
+# of tests/e2e/test_long_loop.py), with that test's loop settings on the
+# default PipelineConfig: loop closure, the Sim(3) graph, compaction every
+# 10 keyframes, loop_min_inliers 25, loop_max_rmse 2.0 px; then
+# run_global_ba().
+LOOP_XS = [SFM_STEP * i for i in range(48)] + \
+    [SFM_STEP * (45 - i) for i in range(44)]
+LOOP_LAUNCHES = {"gather_windows": 48, "refine_walk": 48,
+                 "descriptor_accumulate": 48, "streaming_top2": 0}
+# The reference: the JAX package's SfmPipeline with that configuration
+# (seed 0, process_sequence with batch 8, then run_global_ba) on the same
+# 92 frames, run once on a CPU (JAX_PLATFORMS=cpu): state "tracking",
+# every frame tracked, bootstrap at frame 2, keyframes at frames 0, 2, 12,
+# ..., 82, one compaction, no loop probed (the return leg keeps
+# re-observing the outbound landmarks, so the covisibility gate drops the
+# only old enough candidates), so no closure and no pose-graph run; 1006
+# landmarks; global BA over 10 cameras, 1006 landmarks, 4519 observations
+# to 0.04985828 px; the sim3-aligned ATE of the trajectory.
+LOOP_JAX_KEYFRAMES, LOOP_JAX_CLOSURES, LOOP_JAX_PGO_RUNS = 10, 0, 0
+LOOP_JAX_ATE = 0.00048009346063800383
+LOOP_JAX_GBA_RMSE = 0.04985828325152397
+# (c) The pose graph at the pipeline's capacities (PipelineConfig's
+# max_pose_graph_nodes 256 and max_pose_graph_edges 1024) and LM budget
+# (15 iterations of 64 CG steps); card against the CPU plain path within
+# PGO_CPU_TOL of the largest coordinate (translations reach 3.6 m): the
+# two devices sum in other orders, and after 15 LM steps the Sim(3) graph
+# ends 1.13e-4 apart in absolute terms (3e-5 relative; SE(3) 1.2e-6).
+PGO_NODES, PGO_EDGES, PGO_PAD = 256, 1024, 64
+PGO_ITERATIONS, PGO_CPU_TOL, PGO_REPS = 15, 1e-4, 3
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -231,30 +279,38 @@ def make_textured(h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
     return img.astype(np.float32)[None]
 
 
-def make_sfm_sequence(n: int = SFM_FRAMES, h: int = SFM_H, w: int = SFM_W):
+def make_sfm_sequence(n: int = SFM_FRAMES, h: int = SFM_H, w: int = SFM_W,
+                      xs=None):
     """Phase 9's monocular sequence, rendered as `tools/gen_fixtures.py`'s
     `_render` renders the TUM fixture: two fronto-parallel planes (top half
-    at SFM_Z_TOP, bottom half at SFM_Z_BOT metres), the camera moving
-    SFM_STEP metres a frame along +x, each plane's texture shifted by
-    fx * tx / z pixels with linear interpolation. The textures are two
-    row bands of one `make_textured` image, wide enough for the whole
-    motion. Returns (uint8 frames (n, h, w), ground-truth centres (n, 3))."""
+    at SFM_Z_TOP, bottom half at SFM_Z_BOT metres), the camera at x =
+    SFM_STEP * i metres in frame i (or at `xs[i]`, a list of positions
+    that are multiples of SFM_STEP, when given), each plane's texture
+    shifted by fx * tx / z pixels with linear interpolation. The textures
+    are two row bands of one `make_textured` image, wide enough for the
+    whole motion. Returns (uint8 frames (len, h, w), ground-truth centres
+    (len, 3))."""
     fx = SFM_INTRINSICS[0]
-    span = int(np.ceil(fx * SFM_STEP * n / SFM_Z_TOP)) + w + 48
+    if xs is None:
+        xs = [SFM_STEP * i for i in range(n)]
+        extent = SFM_STEP * n
+    else:
+        extent = max(xs) + SFM_STEP
+    span = int(np.ceil(fx * extent / SFM_Z_TOP)) + w + 48
     tex = make_textured(2 * (h - h // 2) + 16, span)[0].astype(np.float64)
     bands = (tex[:h // 2], tex[-(h - h // 2):])
-    frames = np.empty((n, h, w), np.uint8)
-    for i in range(n):
+    frames = np.empty((len(xs), h, w), np.uint8)
+    for i, tx in enumerate(xs):
         rows = []
         for band, z in zip(bands, (SFM_Z_TOP, SFM_Z_BOT)):
-            cols = np.clip(np.arange(w) + fx * SFM_STEP * i / z + 40.0, 0,
+            cols = np.clip(np.arange(w) + fx * tx / z + 40.0, 0,
                            band.shape[1] - 2)
             c0 = np.floor(cols).astype(int)
             f = cols - c0
             rows.append(band[:, c0] * (1 - f) + band[:, c0 + 1] * f)
         frames[i] = np.clip(np.round(np.concatenate(rows)), 0, 255)
-    gt = np.zeros((n, 3))
-    gt[:, 0] = SFM_STEP * np.arange(n)
+    gt = np.zeros((len(xs), 3))
+    gt[:, 0] = xs
     return frames, gt
 
 
@@ -1582,6 +1638,272 @@ def sfm_phase(torch, card: str) -> tuple:
     return launches, errs
 
 
+class _Events:
+    """A `MetricsLogger` stand-in that keeps the pipeline's events."""
+
+    def __init__(self):
+        self.events = []
+
+    def log(self, event, **fields):
+        self.events.append((event, fields))
+
+    def count(self, event) -> int:
+        return sum(e == event for e, _ in self.events)
+
+
+def capacity_graph(torch, D: int, seed: int):
+    """A pose graph at the pipeline's capacities (PGO_NODES nodes,
+    PGO_EDGES edges of which PGO_PAD are weight-0 padding): an odometry
+    chain plus random chords between distinct nodes, measurements the
+    true relative poses plus noise, node 0 and four others fixed, the
+    start the truth plus noise. D = 6 (SE(3)) or 7 (Sim(3)); CPU tensors."""
+    from sift_tpu_torch.geometry import lie, sim3
+    rng = np.random.default_rng(seed)
+    n, m = PGO_NODES, PGO_EDGES - PGO_PAD
+    gt = np.zeros((n, D), np.float32)
+    gt[:, :3] = rng.uniform(-0.6, 0.6, (n, 3))
+    gt[:, 3:6] = rng.uniform(-3.0, 3.0, (n, 3))
+    if D == 7:
+        gt[:, 6] = rng.uniform(-0.2, 0.2, n)
+    ei = np.concatenate([np.arange(n - 1), rng.integers(0, n, m - n + 1)])
+    ej = np.concatenate([np.arange(1, n), (ei[n - 1:] + rng.integers(
+        1, n, m - n + 1)) % n])
+    g = torch.from_numpy(gt)
+    if D == 7:
+        S = sim3.sim3_exp(g)
+        ez = sim3.sim3_log(*sim3.sim3_compose(
+            *sim3.sim3_inverse(*(x[ei] for x in S)), *(x[ej] for x in S)))
+    else:
+        R, t = lie.se3_exp(g)
+        ez = lie.se3_log(*lie.se3_compose(*lie.se3_inverse(R[ei], t[ei]),
+                                          R[ej], t[ej]))
+    ez = ez.numpy() + rng.normal(0, 0.01, (m, D)).astype(np.float32)
+    ew = rng.uniform(0.5, 20.0, m)
+    ei = np.concatenate([ei, rng.integers(0, n, PGO_PAD)])
+    ej = np.concatenate([ej, rng.integers(0, n, PGO_PAD)])
+    ez = np.concatenate([ez, np.full((PGO_PAD, D), 9.5, np.float32)])
+    ew = np.concatenate([ew, np.zeros(PGO_PAD)])
+    fixed = np.zeros(n, bool)
+    fixed[[0, *rng.choice(np.arange(1, n), 4, replace=False)]] = True
+    init = gt + rng.normal(0, 0.05, gt.shape).astype(np.float32)
+    init[fixed] = gt[fixed]
+    return [torch.from_numpy(np.asarray(a, dt)) for a, dt in (
+        (init, np.float32), (ei, np.int64), (ej, np.int64),
+        (ez, np.float32), (ew, np.float32), (fixed, bool))]
+
+
+def pgo_capacity(torch, card: str) -> dict:
+    """Phase 10c: both pose graphs at capacity on the card, under
+    `set_sync_debug_mode("error")`; two card runs bit-identical, the CPU
+    within PGO_CPU_TOL; ms per run (CUDA events, median of PGO_REPS)."""
+    from sift_tpu_torch.slam import pose_graph as pg
+    out = {}
+    for D, name, cls, opt in (
+            (6, "SE(3)", pg.PoseGraph, pg.optimize_pose_graph),
+            (7, "Sim(3)", pg.Sim3Graph, pg.optimize_pose_graph_sim3)):
+        arrays = capacity_graph(torch, D, seed=D)
+        cpu_graph = cls(*arrays)
+        graph = cls(*(a.cuda() for a in arrays))
+
+        def run():
+            return opt(graph, iterations=PGO_ITERATIONS).poses
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            first = run()
+            second = run()
+        except RuntimeError as e:
+            raise Failed(f"{name} pose graph synced the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        first, second = first.cpu(), second.cpu()
+        if not torch.equal(first, second):
+            raise Failed(f"{name} pose graph: two card runs differ")
+        t0 = time.perf_counter()
+        cpu = opt(cpu_graph, iterations=PGO_ITERATIONS).poses
+        cpu_s = time.perf_counter() - t0
+        err = float((first - cpu).abs().max())
+        rel = err / max(1.0, float(cpu.abs().max()))
+        moved = float((first - arrays[0]).abs().max())
+        if not torch.isfinite(first).all() or rel > PGO_CPU_TOL or \
+                moved < 1e-2:
+            raise Failed(f"{name} pose graph at capacity: card vs CPU "
+                         f"{err:.3g} ({rel:.3g} of the largest coordinate, "
+                         f"tolerance {PGO_CPU_TOL}), moved {moved:.3g}")
+        times = []
+        for _ in range(PGO_REPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            run()
+            ev[1].record()
+            ev[1].synchronize()
+            times.append((ev[0].elapsed_time(ev[1]),
+                          1e3 * (time.perf_counter() - t0)))
+        ms = float(np.median([a for a, _ in times]))
+        wall = float(np.median([b for _, b in times]))
+        busy_ms, busy_wall = profile_busy(
+            torch, lambda: (run(), torch.cuda.synchronize()),
+            f"chip_smoke_pgo_{D}dof_profile.txt", card)
+        print(f"phase 10c {name} pose graph at {PGO_NODES} nodes / "
+              f"{PGO_EDGES} edges ({PGO_ITERATIONS} LM x 64 CG steps, no "
+              f"host sync under sync_debug_mode error): {ms:.3f} ms a run "
+              f"(CUDA events, median of {PGO_REPS}; min "
+              f"{min(a for a, _ in times):.3f}, max "
+              f"{max(a for a, _ in times):.3f}), wall {wall:.3f} ms; two card "
+              f"runs bit-identical; card vs CPU max abs {err:.3g}, {rel:.3g} "
+              f"of the largest coordinate (CPU "
+              f"{cpu_s:.3f} s); profiled run device busy {busy_ms:.3f} ms of "
+              f"{busy_wall:.3f} ms wall; card {card}", flush=True)
+        out[name] = ms
+    return out
+
+
+def loop_phase(torch, card: str) -> tuple:
+    """Phase 10: loop closure and map maintenance on the card. (a) the
+    out-and-back sequence through `process_sequence` with loop closure,
+    the Sim(3) graph and compaction on, then `run_global_ba`; (b) a forced
+    revisit closed through both graphs; (c) both graphs at capacity;
+    (d) `save_map` -> `load_map`. Returns (launch counts of (a),
+    {kernel: max abs err on (a)'s first chunk})."""
+    from sift_tpu_torch.config import PipelineConfig
+    from sift_tpu_torch.eval.ate import ate_rmse
+    from sift_tpu_torch.kernels import cuda as kcuda
+    from sift_tpu_torch.kernels.cuda import descriptor
+    from sift_tpu_torch.slam.pipeline import Keyframe, SfmPipeline
+
+    frames, gt = make_sfm_sequence(xs=LOOP_XS)
+    frames = list(frames)
+    cfg = PipelineConfig(enable_loop_closure=True, pose_graph_sim3=True,
+                         compact_interval_kf=10, loop_min_inliers=25,
+                         loop_max_rmse=2.0)
+    log = _Events()
+    pipe = SfmPipeline(SFM_INTRINSICS, cfg, seed=0, logger=log)
+    with recording(extraction_kernels()) as (recorded, originals):
+        kcuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = pipe.process_sequence(frames, batch=SFM_BATCH)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        launches = kcuda.launch_counts()
+        first_chunk = {name: calls[:4] for name, calls in recorded.items()}
+        recorded.clear()
+    tracked = float(np.mean([r["tracked"] for r in res]))
+    n_kf = len(pipe.keyframes)
+    closures, pgo_runs = pipe.num_loop_closures, log.count("pose_graph")
+    t0 = time.perf_counter()
+    gba = pipe.run_global_ba()
+    gba_s = time.perf_counter() - t0
+    est = pipe.positions()
+    if est.shape != (len(LOOP_XS), 3) or not np.isfinite(est).all():
+        raise Failed(f"loop positions {est.shape} not finite")
+    ate = ate_rmse(est, gt, align=True, with_scale=True)
+    print(f"phase 10a: {len(frames)} frames out and back in {seq_s:.3f} s "
+          f"({len(frames) / seq_s:.3f} frames/s, first pass); state "
+          f"{pipe.state}, tracked share {tracked:.4f}, keyframes {n_kf} at "
+          f"{[kf.frame_idx for kf in pipe.keyframes]} (JAX "
+          f"{LOOP_JAX_KEYFRAMES}), loop closures {closures} (JAX "
+          f"{LOOP_JAX_CLOSURES}), pose-graph runs {pgo_runs} (JAX "
+          f"{LOOP_JAX_PGO_RUNS}), probes {len(pipe.loop_probe_log)}, "
+          f"compactions {log.count('compact')}, landmarks "
+          f"{pipe.landmarks.shape[0]}; global BA {gba} in {gba_s:.3f} s "
+          f"(JAX RMSE {LOOP_JAX_GBA_RMSE:.6f} px); sim3 ATE {ate:.6f} m "
+          f"(JAX {LOOP_JAX_ATE:.6f} m); launches {launches}", flush=True)
+    if pipe.state != "tracking" or tracked < 0.9:
+        raise Failed(f"loop sequence: state {pipe.state}, tracked {tracked}")
+    if (closures, pgo_runs) != (LOOP_JAX_CLOSURES, LOOP_JAX_PGO_RUNS):
+        raise Failed(f"loop sequence closed {closures} loops in {pgo_runs} "
+                     f"graph runs, JAX {LOOP_JAX_CLOSURES} in "
+                     f"{LOOP_JAX_PGO_RUNS}")
+    if abs(n_kf - LOOP_JAX_KEYFRAMES) > 0.2 * LOOP_JAX_KEYFRAMES:
+        raise Failed(f"loop sequence made {n_kf} keyframes, JAX "
+                     f"{LOOP_JAX_KEYFRAMES}")
+    if ate > max(1.5 * LOOP_JAX_ATE, LOOP_JAX_ATE + 0.01):
+        raise Failed(f"loop sequence ATE {ate} m against JAX's "
+                     f"{LOOP_JAX_ATE} m")
+    if not np.isfinite(gba["rmse"]) or gba["n_cams"] != n_kf:
+        raise Failed(f"global BA {gba}")
+    if launches != LOOP_LAUNCHES:
+        raise Failed(f"phase 10a launch counts {launches} != {LOOP_LAUNCHES}")
+    plain = extraction_plain()
+    errs = {}
+    for name, calls in first_chunk.items():
+        errs[name] = 0.0
+        for args in calls:
+            got, want = originals[name](*args), plain[name](*args)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], hold_extraction_kernel(
+                torch, descriptor.TOLERANCE, name, got, want)[0])
+        print(f"phase 10a {name}: {len(calls)} calls of the first chunk held "
+              f"against plain, max_abs_err {errs[name]:.3g}", flush=True)
+    del first_chunk
+
+    # (b) forced revisits: keyframe 0's keypoints with fresh slots (no
+    # shared landmark ids, so the covisibility gate passes), closed through
+    # the Sim(3) graph, then once more through the SE(3) graph. Each
+    # closure is timed with the window BA that ends its promotion.
+    for sim3 in (True, False):
+        pipe.cfg = pipe.cfg.replace(pose_graph_sim3=sim3)
+        kf0 = pipe.keyframes[0]
+        pipe.keyframes.append(Keyframe(pipe._frame_idx + 1, kf0.pose.copy(),
+                                       kf0.kp))
+        new_idx = len(pipe.keyframes) - 1
+        before = (pipe.num_loop_closures, log.count("pose_graph"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sites = count_syncs(torch, lambda: pipe._try_loop_closure(new_idx))
+        t1 = time.perf_counter()
+        pipe._run_window_ba(fix_first_n=2)
+        t2 = time.perf_counter()
+        fused = int((pipe.keyframes[new_idx].kp_lm >= 0).sum())
+        probe = pipe.loop_probe_log[-1]
+        graph = "Sim(3)" if sim3 else "SE(3)"
+        print(f"phase 10b forced revisit ({graph} graph): probe {probe}, fused {fused} slots; closure "
+              f"(probe, fusion, graph) {1e3 * (t1 - t0):.3f} ms with "
+              f"{len(sites)} host syncs {sorted(sites)}, its promotion's "
+              f"window BA {1e3 * (t2 - t1):.3f} ms; card {card}", flush=True)
+        if (pipe.num_loop_closures, log.count("pose_graph")) != \
+                (before[0] + 1, before[1] + 1) or \
+                pipe.pose_edges[-1]["kind"] != "loop" or \
+                fused < cfg.loop_min_inliers:
+            raise Failed(f"forced revisit not closed through the {graph} "
+                         "graph")
+        if not all(np.isfinite(kf.pose).all() for kf in pipe.keyframes) or \
+                not np.isfinite(pipe.landmarks).all():
+            raise Failed("non-finite map after a closure")
+
+    # (c) both graphs at capacity.
+    pgo_capacity(torch, card)
+
+    # (d) save -> load on the card.
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, OUT_DIR, "chip_smoke_map.npz")
+    pipe.save_map(path)
+    back = SfmPipeline(SFM_INTRINSICS, cfg, seed=1)
+    back.load_map(path)
+    same = (np.array_equal(back.landmarks, pipe.landmarks)
+            and np.array_equal(back.lm_ref_kf, pipe.lm_ref_kf)
+            and torch.equal(back._gen.get_state(), pipe._gen.get_state())
+            and back.num_loop_closures == pipe.num_loop_closures
+            and len(back.keyframes) == len(pipe.keyframes)
+            and all(np.array_equal(a.pose, b.pose)
+                    and np.array_equal(a.kp_lm, b.kp_lm)
+                    and torch.equal(a.kp["desc"], b.kp["desc"])
+                    and torch.equal(a.kp["valid_t"], b.kp["valid_t"])
+                    for a, b in zip(pipe.keyframes, back.keyframes))
+            and [(e["i"], e["j"], e["kind"]) for e in back.pose_edges]
+            == [(e["i"], e["j"], e["kind"]) for e in pipe.pose_edges])
+    print(f"phase 10d save_map -> load_map on the card: "
+          f"{len(back.keyframes)} keyframes, {back.landmarks.shape[0]} "
+          f"landmarks, {len(back.pose_edges)} edges, state equal: {same}",
+          flush=True)
+    os.remove(path)
+    if not same:
+        raise Failed("save_map -> load_map changed the state")
+    return launches, errs
+
+
 def finish(torch, card: str) -> int:
     """Print the card line and, as the last line, the result."""
     print(f"card: {card}", flush=True)
@@ -1793,6 +2115,7 @@ def main() -> int:
         twoview_launches = twoview_phase(torch, card)
         ba_phase(torch, card)
         sfm_launches, sfm_err = sfm_phase(torch, card)
+        loop_launches, loop_err = loop_phase(torch, card)
     except Failed as e:
         return fail(str(e))
     size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
@@ -1800,6 +2123,8 @@ def main() -> int:
         r["launches_twoview"] = twoview_launches[r["name"]]
         r["launches_sfm"] = sfm_launches[r["name"]]
         r["max_abs_err_sfm"] = sfm_err[r["name"]]
+        r["launches_loop"] = loop_launches[r["name"]]
+        r["max_abs_err_loop"] = loop_err[r["name"]]
         r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
         if r["name"] in at_size:
             t = at_size[r["name"]]
@@ -1812,6 +2137,7 @@ def main() -> int:
             r.update({"deterministic": True, "sass_atomics": len(atomics)})
     row["launches_twoview"] = twoview_launches["streaming_top2"]
     row["launches_sfm"] = sfm_launches["streaming_top2"]
+    row["launches_loop"] = loop_launches["streaming_top2"]
     rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)

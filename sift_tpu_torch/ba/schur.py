@@ -35,17 +35,12 @@ import torch
 
 from sift_tpu_torch.ba.residuals import linearize
 from sift_tpu_torch.utils.device import check_f32_matmul
+from sift_tpu_torch.utils.linalg import inv_or_nan
 
 
 def _seg_sum(x: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
     out = torch.zeros((num,) + x.shape[1:], dtype=x.dtype, device=x.device)
     return out.index_put_((idx.long(),), x, accumulate=True)
-
-
-def inv_or_nan(A: torch.Tensor) -> torch.Tensor:
-    """Batched inverse; a block whose factorization fails is all NaN."""
-    inv, info = torch.linalg.inv_ex(A)
-    return torch.where((info == 0)[..., None, None], inv, float("nan"))
 
 
 def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

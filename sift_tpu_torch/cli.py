@@ -15,11 +15,12 @@ the centre) and estimates the camera-B-from-camera-A pose (5-point
 essential RANSAC, cheirality, Gauss-Newton polish). `sfm` runs the
 incremental SfM/SLAM loop (`slam/pipeline.py::SfmPipeline`) over a TUM-RGBD
 sequence (RGB-D unless `--no-depth`) or a KITTI odometry sequence
-(monocular) and reports ATE and RPE against the ground truth. Each takes
-the JAX command's flags and prints its output lines; the JAX `sfm` flags
-whose paths are not ported (`--chunked`, `--ba-async`, `--loop-closure`,
-`--sim3`, `--compact-every`, `--global-ba`, `--stereo`, `--plot`) raise
-`NotImplementedError`. `--device` (default `cuda`) picks where everything
+(monocular) and reports ATE and RPE against the ground truth, with loop
+closure (`--loop-closure`, `--sim3`), landmark compaction
+(`--compact-every`) and a final full-map BA (`--global-ba`) on request.
+Each takes the JAX command's flags and prints its output lines; the JAX
+`sfm` flags whose paths are not ported (`--chunked`, `--ba-async`,
+`--stereo`, `--plot`) raise `NotImplementedError`. `--device` (default `cuda`) picks where everything
 runs; RANSAC draws from a `torch.Generator` seeded with 0 on that device.
 """
 
@@ -224,10 +225,7 @@ def cmd_twoview(args) -> int:
 
 
 _SFM_REFUSED = (("chunked", "--chunked"), ("ba_async", "--ba-async"),
-                ("loop_closure", "--loop-closure"), ("sim3", "--sim3"),
-                ("compact_every", "--compact-every"),
-                ("global_ba", "--global-ba"), ("stereo", "--stereo"),
-                ("plot", "--plot"))
+                ("stereo", "--stereo"), ("plot", "--plot"))
 
 
 def cmd_sfm(args) -> int:
@@ -256,8 +254,14 @@ def cmd_sfm(args) -> int:
 
     logger = MetricsLogger(args.metrics) if args.metrics else None
     kw = {}
+    if args.loop_closure or args.sim3:
+        kw["enable_loop_closure"] = True
+    if args.sim3:
+        kw["pose_graph_sim3"] = True
     if args.window:
         kw["window_size"] = args.window
+    if args.compact_every:
+        kw["compact_interval_kf"] = args.compact_every
     pipe = SfmPipeline(seq.intrinsics, PipelineConfig(**kw), logger=logger,
                        device=args.device)
     use_depth = args.format == "tum" and not args.no_depth
@@ -280,6 +284,10 @@ def cmd_sfm(args) -> int:
     print(f"{len(seq)} frames in {dt:.1f}s ({len(seq)/dt:.1f} fps), "
           f"{len(pipe.keyframes)} keyframes, "
           f"{pipe.landmarks.shape[0]} landmarks")
+    if args.global_ba:
+        stats = pipe.run_global_ba()
+        print(f"global BA: {stats['n_cams']} cams / {stats['n_lms']} lms / "
+              f"{stats['n_obs']} obs, reproj RMSE {stats['rmse']:.3f} px")
 
     gt = seq.gt_positions()
     if gt is not None and len(pipe.trajectory) == gt.shape[0]:
@@ -385,11 +393,17 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--plot", help="not ported")
     ps.add_argument("--chunked", action="store_true", help="not ported")
     ps.add_argument("--ba-async", action="store_true", help="not ported")
-    ps.add_argument("--loop-closure", action="store_true", help="not ported")
-    ps.add_argument("--sim3", action="store_true", help="not ported")
+    # Loop closure and map maintenance.
+    ps.add_argument("--loop-closure", action="store_true",
+                    help="enable loop closure + pose-graph optimization")
+    ps.add_argument("--sim3", action="store_true",
+                    help="Sim(3) pose graph (monocular scale drift); implies "
+                         "--loop-closure")
     ps.add_argument("--compact-every", type=int, default=0, metavar="N",
-                    help="not ported")
-    ps.add_argument("--global-ba", action="store_true", help="not ported")
+                    help="compact landmark ids every N keyframes (0 = off)")
+    ps.add_argument("--global-ba", action="store_true",
+                    help="run a full-map bundle adjustment after the "
+                         "sequence")
     ps.set_defaults(func=cmd_sfm)
     return top
 

@@ -202,8 +202,8 @@ class PipelineConfig:
     use_global_index: bool = True
     global_index_sim: float = 0.85    # cosine vote threshold
 
-    # Loop closure / pose-graph SLAM (not ported; the index capacity is
-    # max_pose_graph_nodes keyframes).
+    # Loop closure / pose-graph SLAM (the global index holds
+    # max_pose_graph_nodes keyframes; a graph over capacity is skipped).
     enable_loop_closure: bool = False
     pose_graph_sim3: bool = False
     loop_candidates: int = 4
@@ -213,7 +213,7 @@ class PipelineConfig:
     max_pose_graph_nodes: int = 256
     max_pose_graph_edges: int = 1024
 
-    # Map maintenance every N promotions (not ported; 0 = off).
+    # Landmark compaction every N promotions (0 = off).
     compact_interval_kf: int = 0
     # Capacity audit of the chunked tracker (carried for field parity).
     track_saturation: bool = False

@@ -30,6 +30,7 @@ from sift_tpu_torch.geometry.ransac import Noise, ransac, sample_minimal_sets
 from sift_tpu_torch.geometry.triangulation import count_in_front
 from sift_tpu_torch.types import TwoViewEstimate
 from sift_tpu_torch.utils.device import constant
+from sift_tpu_torch.utils.linalg import eigh_or_nan, svd_or_nan
 
 _EPS = 1e-12
 
@@ -53,9 +54,19 @@ def fit_fundamental_8pt(pa: torch.Tensor, pb: torch.Tensor,
     """Weighted normalized 8-point fit of F (or E if `essential`).
 
     pa, pb: (..., N, 2) (pixels for F, normalized coordinates for E);
-    weights: (..., N) or None. Returns (..., 3, 3), unit Frobenius norm."""
+    weights: (..., N) or None. Returns (..., 3, 3), unit Frobenius norm.
+
+    The fit runs in float64 and returns the input's dtype. The normal
+    matrix A^T A squares the DLT system's conditioning: formed in f32 it
+    carries rounding of eps * |M| (2.5e-4 on a refit over 424 matches of a
+    two-plane scene), the size of its two smallest eigenvalues there
+    (3.3e-5 and 1.5e-3), so its f32 null vector follows the summation
+    order: the card's and the CPU's refit of one such pair recovered
+    translations 42 degrees apart."""
+    dtype = pa.dtype
+    pa, pb = pa.to(torch.float64), pb.to(torch.float64)
     w = torch.ones(pa.shape[:-1], dtype=pa.dtype, device=pa.device) \
-        if weights is None else weights
+        if weights is None else weights.to(torch.float64)
     Ta = _normalization(pa, w)
     Tb = _normalization(pb, w)
     na = _apply_h(Ta, pa)
@@ -63,11 +74,11 @@ def fit_fundamental_8pt(pa: torch.Tensor, pb: torch.Tensor,
 
     A = _epipolar_rows(na, nb) * w[..., None]
     M = A.transpose(-1, -2) @ A
-    _, vecs = torch.linalg.eigh(M)
+    _, vecs = eigh_or_nan(M)
     F = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
 
     # Project to the model manifold: rank 2 (F), or (s, s, 0) (E).
-    U, S, Vt = torch.linalg.svd(F)
+    U, S, Vt = svd_or_nan(F)
     if essential:
         s = (S[..., 0] + S[..., 1]) * 0.5
         S_proj = torch.stack([s, s, torch.zeros_like(s)], -1)
@@ -77,7 +88,7 @@ def fit_fundamental_8pt(pa: torch.Tensor, pb: torch.Tensor,
 
     F = Tb.transpose(-1, -2) @ F @ Ta              # denormalize
     norm = torch.linalg.matrix_norm(F)[..., None, None]
-    return F / torch.where(norm < _EPS, _EPS, norm)
+    return (F / torch.where(norm < _EPS, _EPS, norm)).to(dtype)
 
 
 def sampson_error(F: torch.Tensor, pa: torch.Tensor,
@@ -167,7 +178,7 @@ def _null_basis_4(na: torch.Tensor, nb: torch.Tensor) -> torch.Tensor:
     constraint null space (eigenvectors of the 4 smallest eigenvalues)."""
     A = _epipolar_rows(na, nb)                       # (..., 5, 9)
     M = A.transpose(-1, -2) @ A
-    _, vecs = torch.linalg.eigh(M)                   # ascending eigenvalues
+    _, vecs = eigh_or_nan(M)                         # ascending eigenvalues
     return vecs[..., :, :4].transpose(-1, -2).reshape(
         vecs.shape[:-2] + (4, 3, 3))
 
@@ -247,7 +258,7 @@ def fit_essential_5pt(na: torch.Tensor, nb: torch.Tensor):
     zp = torch.stack([torch.ones_like(roots), roots, roots * roots,
                       roots * roots * roots], -1)
     A = torch.einsum("...ijc,...rc->...rij", C, zp)            # (..., 10, 10, 10)
-    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    _, vecs = eigh_or_nan(A.transpose(-1, -2) @ A)
     m = vecs[..., 0]                                           # (..., 10, 10)
     w0 = m[..., 9]                                             # coefficient of "1"
     ok = has_root & (w0.abs() > 1e-8 * torch.linalg.vector_norm(m, dim=-1))
@@ -313,7 +324,7 @@ def decompose_essential(E: torch.Tensor, na: torch.Tensor, nb: torch.Tensor,
     and the one with most points in front of both cameras wins.
 
     Returns (R (3, 3), t (3,), num_good int32); |t| = 1."""
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = svd_or_nan(E)
     # Ensure proper rotations.
     U = U * torch.sign(torch.linalg.det(U))
     Vt = Vt * torch.sign(torch.linalg.det(Vt))

@@ -19,6 +19,8 @@ import torch
 from sift_tpu_torch.config import RansacConfig
 from sift_tpu_torch.geometry.ransac import Noise, ransac
 from sift_tpu_torch.types import TwoViewEstimate
+from sift_tpu_torch.utils.linalg import (eigh_or_nan, inv_or_nan,
+                                         solve_or_nan, svd_or_nan)
 
 _EPS = 1e-12
 
@@ -72,9 +74,9 @@ def fit_homography(pa: torch.Tensor, pb: torch.Tensor,
     A = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)  # (..., 2N, 9)
 
     M = A.transpose(-1, -2) @ A                       # 9x9 normal matrix
-    _, vecs = torch.linalg.eigh(M)
+    _, vecs = eigh_or_nan(M)
     Hn = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))   # smallest
-    H = torch.linalg.solve(Tb, Hn @ Ta)               # Tb^-1 Hn Ta
+    H = solve_or_nan(Tb, Hn @ Ta)               # Tb^-1 Hn Ta
     return _safe_div(H, H[..., 2:3, 2:3])
 
 
@@ -82,7 +84,7 @@ def symmetric_transfer_error(H: torch.Tensor, pa: torch.Tensor,
                              pb: torch.Tensor) -> torch.Tensor:
     """Squared symmetric transfer error |H pa - pb|^2 + |H^-1 pb - pa|^2.
     H: (..., 3, 3); pa, pb: (N, 2). Returns (..., N)."""
-    Hinv = torch.linalg.inv(H)
+    Hinv = inv_or_nan(H)
     fwd = ((_apply_h(H, pa) - pb) ** 2).sum(dim=-1)
     bwd = ((_apply_h(Hinv, pb) - pa) ** 2).sum(dim=-1)
     return fwd + bwd
@@ -116,7 +118,7 @@ def decompose_homography(H: torch.Tensor, na: torch.Tensor, nb: torch.Tensor,
     n (3,), num_good int32)."""
     from sift_tpu_torch.geometry.triangulation import count_in_front
 
-    U, D, Vt = torch.linalg.svd(H)
+    U, D, Vt = svd_or_nan(H)
     V = Vt.T
     s = torch.linalg.det(U) * torch.linalg.det(V)
     d1, d2, d3 = D[0], D[1], D[2]

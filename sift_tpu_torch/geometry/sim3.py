@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from sift_tpu_torch.geometry import lie
+from sift_tpu_torch.utils.linalg import svd_or_nan
 
 _EPS = 1e-6
 
@@ -118,7 +119,7 @@ def umeyama_alignment(src: torch.Tensor, dst: torch.Tensor,
     sc = src - mu_s
     dc = dst - mu_d
     cov = (dc * w[:, None]).T @ sc / wsum                # (3, 3)
-    U, D, Vt = torch.linalg.svd(cov)
+    U, D, Vt = svd_or_nan(cov)
     sgn = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
     diag = torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn])
     R = U @ (diag[:, None] * Vt)

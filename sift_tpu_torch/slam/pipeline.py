@@ -27,11 +27,19 @@ Pipeline states:
 Randomness comes from one `torch.Generator` on the device, seeded by
 `seed`. Every stage also takes its Gumbel noise as tensors (the JAX
 package's draws, in the tests). Of the JAX stages' `vmap`s, the
-relocalization probe's candidates are `torch.func.vmap`ped and the
-bootstrap's attempts are a loop on the device. Not ported (each raises
-`NotImplementedError`): loop closure and the pose graph, chunked
-tracking, asynchronous BA, landmark compaction, stereo, meshes, and the
-map-maintenance methods.
+relocalization and loop-closure probes' candidates are
+`torch.func.vmap`ped and the bootstrap's attempts are a loop on the
+device.
+
+Loop closure: each promoted keyframe probes the old keyframes the global
+index votes for (one batched stage), an accepted closure adds a loop edge
+to the pose graph, fuses the old landmarks into the new keyframe's, and
+optimizes the graph (SE(3), or Sim(3) with `pose_graph_sim3`) in one
+stage with one packed read; landmarks follow their creating keyframe's
+correction. Map maintenance: `compact_landmarks` (also every
+`compact_interval_kf` promotions), `cull_keyframes`, `run_global_ba`,
+`save_map` / `load_map`. Not ported (each raises `NotImplementedError`
+naming the option): chunked tracking, asynchronous BA, stereo and meshes.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from sift_tpu_torch.ba.pose_only import pose_ransac_refine
 from sift_tpu_torch.ba.solver import run_ba
 from sift_tpu_torch.config import PipelineConfig
 from sift_tpu_torch.frontend.sift import extract_batch
-from sift_tpu_torch.geometry import lie, lie_np
+from sift_tpu_torch.geometry import lie, lie_np, sim3
 from sift_tpu_torch.geometry.camera import project as project_cam
 from sift_tpu_torch.geometry.epipolar import estimate_relative_pose
 from sift_tpu_torch.geometry.homography import (decompose_homography,
@@ -54,16 +62,21 @@ from sift_tpu_torch.geometry.ransac import Noise, gumbel
 from sift_tpu_torch.geometry.triangulation import triangulate_dlt
 from sift_tpu_torch.matching.matcher import (match_descriptors,
                                              match_descriptors_guided)
+from sift_tpu_torch.slam.pose_graph import (PoseGraph, Sim3Graph,
+                                            optimize_pose_graph,
+                                            optimize_pose_graph_sim3)
 from sift_tpu_torch.types import Keypoints, Matches
 from sift_tpu_torch.utils.metrics import MetricsLogger
 
-# Pose RANSAC hypotheses of promotions and relocalization probes (the JAX
-# stages take `pose_ransac_refine`'s default).
+# Pose RANSAC hypotheses of promotions, relocalization and loop-closure
+# probes (the JAX stages take `pose_ransac_refine`'s default).
 _KF_HYPOTHESES = 8
+# LM iterations of a pose-graph run (the JAX package's `_pgo_jit`).
+_PGO_ITERATIONS = 15
+# The loop probe's landmark table is padded to a multiple of this.
+_LM_TABLE_PAD = 4096
 
 _REFUSED_OPTIONS = (
-    ("enable_loop_closure", "loop closure (slam/pose_graph.py)"),
-    ("pose_graph_sim3", "the Sim(3) pose graph"),
     ("chunked_tracking", "device-resident chunked tracking"),
     ("ba_async", "asynchronous window BA"),
     ("ba_defer_kickoff", "the deferred window-BA kickoff"),
@@ -147,10 +160,6 @@ class SfmPipeline:
             if getattr(self.cfg, name):
                 raise NotImplementedError(
                     f"PipelineConfig.{name}=True ({what}) is not ported")
-        if self.cfg.compact_interval_kf > 0:
-            raise NotImplementedError(
-                "PipelineConfig.compact_interval_kf > 0 (landmark compaction) "
-                "is not ported")
         if stereo_baseline is not None:
             raise NotImplementedError(
                 "stereo_baseline (matching/stereo.py) is not ported")
@@ -165,6 +174,7 @@ class SfmPipeline:
         self._K = _upload(self.K, self.device)
         self.logger = logger
         self.frontend = frontend
+        self._seed = seed
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
         self.keyframes: List[Keyframe] = []
@@ -176,12 +186,17 @@ class SfmPipeline:
         self._frames_since_kf = 0
         self._frames_lost = 0
 
-        # Odometry edges between consecutive keyframes (bookkeeping for the
-        # pose graph, which is not ported).
+        # Pose graph: odometry edges between consecutive keyframes plus
+        # loop-closure edges; optimized on every accepted closure.
         self.pose_edges: List[Dict] = []
+        self.num_loop_closures = 0
+        # Per-candidate loop-probe outcomes (host bookkeeping): every
+        # probed candidate's gate values, to see which gate (n_has, n_inl,
+        # rmse) sits closest to its threshold.
+        self.loop_probe_log: List[Dict] = []
 
         # Local-map cache: rebuilt only when the observation graph changes
-        # (promotion), not every tracked frame.
+        # (promotion, landmark fusion, load), not every tracked frame.
         self._map_version = 0
         self._local_map_cache = None
 
@@ -361,6 +376,77 @@ class SfmPipeline:
             noise, parts[4].reshape(Kc, 6), desc_bank,
             parts[0].reshape(Kc, N) > 0.5, parts[1].reshape(Kc, N, 3),
             parts[2].reshape(Kc, N) > 0.5, parts[3].reshape(Kc, N, 2))
+
+    def _loop_probe(self, noise: Noise, new_pose, desc_bank, desc_q, packed,
+                    lm_table) -> torch.Tensor:
+        """All loop-closure candidates probed in one batch: match ->
+        2D-3D gather -> robust localize, `torch.func.vmap`ped over the
+        rows of `desc_bank`.
+
+        `packed` (device f32, one upload): [kp_lm_bank K*N | valid_bank
+        K*N | uv_q 2N | valid_q N | cand_ok K]; ids travel as f32 (exact
+        below 2^24). `lm_table` (Lpad, 3): the landmark table padded to a
+        multiple of 4096 rows. `noise`: a generator or the (K, H, M)
+        Gumbel draws of the candidates' pose RANSAC. Returns (K, 9 +
+        3*M): [pose 6 | n_has | n_inl | rmse | idx_b | lm_of | inlier] per
+        candidate."""
+        Kc, N = desc_bank.shape[0], desc_bank.shape[1]
+        kp_lm, valid_bank, uv_q, valid_q, cand_ok = torch.split(
+            packed, [Kc * N, Kc * N, 2 * N, N, Kc])
+        kp_lm = kp_lm.reshape(Kc, N).to(torch.int64)
+        valid_bank = valid_bank.reshape(Kc, N) > 0.5
+        uv_q = uv_q.reshape(N, 2)
+        valid_q = valid_q > 0.5
+        cand_ok = cand_ok > 0.5
+        Lpad = lm_table.shape[0]
+        if isinstance(noise, torch.Generator):
+            noise = gumbel(noise, (Kc, _KF_HYPOTHESES,
+                                   self.cfg.match.max_matches), desc_q.device)
+
+        def one(noise_k, desc_k, valid_k, kp_lm_k, ok_k):
+            m = match_descriptors(desc_k, valid_k, desc_q, valid_q,
+                                  self.cfg.match)
+            lm_of = kp_lm_k[m.idx_a.long()]
+            has = m.valid & (lm_of >= 0) & ok_k
+            lms = lm_table[torch.clamp(lm_of, 0, Lpad - 1)]
+            uv = uv_q[m.idx_b.long()]
+            pose, inl, rmse = pose_ransac_refine(
+                noise_k, new_pose, self._K, lms, uv, has,
+                num_hypotheses=_KF_HYPOTHESES,
+                delta=self.cfg.ransac.inlier_threshold)
+            inl = inl & has
+            f32 = torch.float32
+            return torch.cat([
+                pose, has.sum().to(f32)[None], inl.sum().to(f32)[None],
+                rmse.to(f32)[None], m.idx_b.to(f32), lm_of.to(f32),
+                inl.to(f32)])
+
+        return torch.func.vmap(one)(noise, desc_bank, valid_bank, kp_lm,
+                                    cand_ok)
+
+    def _pgo(self, poses, ei, ej, ez, ew, fixed) -> torch.Tensor:
+        """SE(3) pose-graph solve: (N, 6) optimized poses."""
+        graph = PoseGraph(poses=poses, edge_i=ei, edge_j=ej, edge_z=ez,
+                          edge_w=ew, fixed=fixed)
+        return optimize_pose_graph(graph, iterations=_PGO_ITERATIONS).poses
+
+    def _pgo_sim3(self, old6, ei, ej, ez6, sig, ew, fixed) -> torch.Tensor:
+        """Sim(3) pose-graph stage: the edges' similarity logs from their
+        SE(3) logs and scale sigmas, the solve from the SE(3) poses at
+        sigma = 0, and each node's delta D = S_new S_old^-1. Returns ONE
+        packed (N, 25) buffer [sd | Rd 9 | td 3 | R_new 9 | t_new 3]."""
+        Rz, tz = lie.se3_exp(ez6)
+        ez7 = sim3.sim3_log(torch.exp(sig), Rz, tz)
+        old7 = sim3.from_se3(old6)
+        graph = Sim3Graph(poses=old7, edge_i=ei, edge_j=ej, edge_z=ez7,
+                          edge_w=ew, fixed=fixed)
+        out = optimize_pose_graph_sim3(graph,
+                                       iterations=_PGO_ITERATIONS).poses
+        s_new, R_new, t_new = sim3.sim3_exp(out)
+        sd, Rd, td = sim3.sim3_compose(
+            s_new, R_new, t_new, *sim3.sim3_inverse(*sim3.sim3_exp(old7)))
+        return torch.cat([sd[:, None], Rd.reshape(-1, 9), td,
+                          R_new.reshape(-1, 9), t_new], -1)
 
     def _bootstrap(self, noise, pa, pb, valid):
         """Two-view initialization with H-vs-E model selection over
@@ -594,22 +680,87 @@ class SfmPipeline:
         inliers[:sel.shape[0]] = inl_slot[sel]
         return pose, inliers, sel, m, lm_of_match, tri
 
-    # -------------------------------------------------- not ported (refused)
+    # ------------------------------------------------------ save / resume
     def save_map(self, path: str) -> None:
-        raise NotImplementedError("SfmPipeline.save_map is not ported")
+        """Serialize the SLAM state (keyframes, landmarks, pose graph,
+        counters) to one .npz with the JAX package's array names; the
+        generator's state takes the place of its `prng_key`. Every
+        keyframe's descriptors come down in one read."""
+        descs = _read(torch.stack([kf.kp["desc"] for kf in self.keyframes])) \
+            if self.keyframes else []
+        arrays = dict(
+            landmarks=self.landmarks,
+            lm_ref_kf=self.lm_ref_kf,
+            intrinsics=self.K,
+            generator_state=self._gen.get_state().numpy(),
+            meta=np.asarray([self._frame_idx, self._frames_since_kf,
+                             self._frames_lost, self.num_loop_closures,
+                             1 if self.state == "tracking" else 0]),
+            n_keyframes=np.asarray(len(self.keyframes)),
+            edges_i=np.asarray([e["i"] for e in self.pose_edges], np.int32),
+            edges_j=np.asarray([e["j"] for e in self.pose_edges], np.int32),
+            edges_z=(np.stack([e["z"] for e in self.pose_edges])
+                     if self.pose_edges else np.zeros((0, 6), np.float32)),
+            edges_w=np.asarray([e["w"] for e in self.pose_edges], np.float32),
+            edges_loop=np.asarray(
+                [e.get("kind") == "loop" for e in self.pose_edges], bool),
+            edges_sigma=np.asarray(
+                [e.get("sigma", 0.0) for e in self.pose_edges], np.float32),
+        )
+        for i, kf in enumerate(self.keyframes):
+            arrays[f"kf{i}_pose"] = kf.pose
+            arrays[f"kf{i}_frame"] = np.asarray(kf.frame_idx)
+            arrays[f"kf{i}_lm"] = kf.kp_lm
+            for field in ("x", "y", "valid", "octave", "u", "v"):
+                arrays[f"kf{i}_{field}"] = kf.kp[field]
+            arrays[f"kf{i}_desc"] = descs[i]
+        np.savez_compressed(path, **arrays)
 
     def load_map(self, path: str) -> None:
-        raise NotImplementedError("SfmPipeline.load_map is not ported")
-
-    def cull_keyframes(self, *args, **kwargs):
-        raise NotImplementedError("SfmPipeline.cull_keyframes is not ported")
-
-    def compact_landmarks(self, *args, **kwargs):
-        raise NotImplementedError("SfmPipeline.compact_landmarks is not "
-                                  "ported")
-
-    def run_global_ba(self, *args, **kwargs):
-        raise NotImplementedError("SfmPipeline.run_global_ba is not ported")
+        """Restore state saved by `save_map` of either package (the
+        configuration must match). A map the JAX package wrote carries a
+        `prng_key` in place of the generator state: it is ignored and the
+        generator reseeded from `seed`. Every keyframe's descriptors and
+        validity go up in one copy."""
+        z = np.load(path, allow_pickle=False)
+        self.landmarks = z["landmarks"]
+        self.lm_ref_kf = z["lm_ref_kf"]
+        if "generator_state" in z.files:
+            self._gen.set_state(torch.from_numpy(z["generator_state"]))
+        else:
+            self._gen.manual_seed(self._seed)
+        meta = z["meta"]
+        self._frame_idx = int(meta[0])
+        self._frames_since_kf = int(meta[1])
+        self._frames_lost = int(meta[2])
+        self.num_loop_closures = int(meta[3])
+        self.state = "tracking" if meta[4] else "bootstrap"
+        n_kf = int(z["n_keyframes"])
+        self.keyframes = []
+        if n_kf:
+            descs, valids = self._upload_many(
+                np.stack([z[f"kf{i}_desc"] for i in range(n_kf)]),
+                np.stack([z[f"kf{i}_valid"] for i in range(n_kf)]))
+        for i in range(n_kf):
+            kp = {f: z[f"kf{i}_{f}"]
+                  for f in ("x", "y", "valid", "octave", "u", "v")}
+            kp["desc"], kp["valid_t"] = descs[i], valids[i]
+            kf = Keyframe(int(z[f"kf{i}_frame"]), z[f"kf{i}_pose"], kp)
+            kf.kp_lm = z[f"kf{i}_lm"]
+            self.keyframes.append(kf)
+        self._map_version += 1
+        self._local_map_cache = None
+        self._global_index = None
+        for i, kf in enumerate(self.keyframes):
+            self._index_keyframe(i, kf)
+        sig = z["edges_sigma"] if "edges_sigma" in z.files else \
+            np.zeros(z["edges_i"].shape[0], np.float32)
+        self.pose_edges = [
+            dict(i=int(z["edges_i"][k]), j=int(z["edges_j"][k]),
+                 z=z["edges_z"][k], w=float(z["edges_w"][k]),
+                 kind="loop" if z["edges_loop"][k] else "odom",
+                 sigma=float(sig[k]))
+            for k in range(z["edges_i"].shape[0])]
 
     # ---------------------------------------------------------- trajectory
     def positions(self) -> np.ndarray:
@@ -1046,6 +1197,11 @@ class SfmPipeline:
         self._map_version += 1         # invalidate the local-map cache
         self._index_keyframe(new_idx, new_kf)
         self._add_odometry_edge(new_idx - 1, new_idx)
+        if self.cfg.enable_loop_closure:
+            self._try_loop_closure(new_idx)
+        if self.cfg.compact_interval_kf and \
+                (new_idx + 1) % self.cfg.compact_interval_kf == 0:
+            self.compact_landmarks()
         self._run_window_ba(fix_first_n=2)
         if self.logger is not None:
             self.logger.log("keyframe", frame=self._frame_idx,
@@ -1058,10 +1214,399 @@ class SfmPipeline:
                                np.asarray(xi_j, np.float32))
 
     def _add_odometry_edge(self, i: int, j: int, weight: float = 1.0):
+        # z is refreshed from the current poses at every optimization
+        # (window BA keeps improving relative poses after the edge is
+        # made); only loop edges keep their measured constraint.
         self.pose_edges.append(dict(
             i=i, j=j, kind="odom",
             z=self._rel_pose(self.keyframes[i].pose, self.keyframes[j].pose),
             w=weight))
+
+    # ------------------------------------------------- pose graph / loops
+    def _try_loop_closure(self, new_idx: int):
+        """Probe old keyframes outside the covisible window for a 2D-3D
+        re-localization of keyframe `new_idx`, all candidates in one
+        batched stage (one upload, one packed read); the decode keeps the
+        best-candidate-first order. The first accepted candidate adds a
+        loop edge, fuses the old landmarks and optimizes the pose graph;
+        at most one closure per keyframe."""
+        cfg = self.cfg
+        old_max = new_idx - cfg.window_size
+        if old_max < 1 or self.landmarks.shape[0] == 0:
+            return
+        new_kf = self.keyframes[new_idx]
+        cand_idx = self._candidate_keyframes(
+            new_kf.kp, cfg.loop_candidates, exclude_from=old_max,
+            min_votes=cfg.loop_min_inliers)
+        new_lms = new_kf.kp_lm[new_kf.kp_lm >= 0]
+        # Covisibility gate: sharing landmarks with the candidate means it
+        # is a tracked neighbour, not a loop.
+        cands: List[int] = []
+        for oi in cand_idx:
+            old_lms = self.keyframes[oi].kp_lm[self.keyframes[oi].kp_lm >= 0]
+            if np.intersect1d(new_lms, old_lms).size > 10:
+                continue
+            cands.append(int(oi))
+        cands = cands[:cfg.loop_candidates]
+        if not cands:
+            return
+
+        # The batch is padded to `loop_candidates` rows (cand_ok = 0).
+        Kc = cfg.loop_candidates
+        N = new_kf.kp["x"].shape[0]
+        kp_lm_bank = np.zeros((Kc, N), np.float32)
+        valid_bank = np.zeros((Kc, N), np.float32)
+        cand_ok = np.zeros((Kc,), np.float32)
+        for s, oi in enumerate(cands):
+            kf = self.keyframes[oi]
+            kp_lm_bank[s] = kf.kp_lm.astype(np.float32)
+            valid_bank[s] = kf.kp["valid"].astype(np.float32)
+            cand_ok[s] = 1.0
+        desc_list = [self.keyframes[oi].kp["desc"] for oi in cands]
+        desc_bank = torch.stack(desc_list + [desc_list[0]] *
+                                (Kc - len(desc_list)))
+        uv_q = np.stack([new_kf.kp["u"], new_kf.kp["v"]],
+                        -1).astype(np.float32)
+        Ln = self.landmarks.shape[0]
+        Lpad = -(-Ln // _LM_TABLE_PAD) * _LM_TABLE_PAD
+        lm_table = np.zeros((Lpad, 3), np.float32)
+        lm_table[:Ln] = self.landmarks
+        pose_t, packed_t, lm_t = self._upload_many(
+            new_kf.pose, np.concatenate([
+                kp_lm_bank.ravel(), valid_bank.ravel(), uv_q.ravel(),
+                new_kf.kp["valid"].astype(np.float32), cand_ok]), lm_table)
+        out = _read(self._loop_probe(self._next_key(), pose_t, desc_bank,
+                                     new_kf.kp["desc"], packed_t, lm_t))
+
+        Mcap = cfg.match.max_matches
+        for s, oi in enumerate(cands):
+            old_kf = self.keyframes[oi]
+            row = out[s]
+            n_has = int(row[6])
+            n_inl = int(row[7])
+            rmse = float(row[8])
+            # `rmse <= max`: a degenerate candidate's NaN rmse rejects.
+            accept = (n_has >= cfg.loop_min_inliers
+                      and n_inl >= cfg.loop_min_inliers
+                      and rmse <= cfg.loop_max_rmse)
+            self.loop_probe_log.append(dict(
+                kf=new_idx, old=int(oi), n_has=n_has, n_inl=n_inl,
+                rmse=rmse, accepted=bool(accept)))
+            if not accept:
+                continue
+            pose = row[:6].astype(np.float32)
+            ib_all = row[9:9 + Mcap].astype(np.int64)
+            lm_all = row[9 + Mcap:9 + 2 * Mcap].astype(np.int64)
+            inl_mask = row[9 + 2 * Mcap:9 + 3 * Mcap] > 0.5
+            ib_inl = ib_all[inl_mask]
+            lm_inl = lm_all[inl_mask]
+            # Scale drift across the loop (Sim(3) graphs only): Umeyama of
+            # the new keyframe's duplicate landmark estimates onto the old
+            # map's points for the same features. Its scale s_u maps local
+            # -> old, and the landmark re-anchor applies S_new S_old^-1,
+            # so the edge carries sigma_z = log(s_u).
+            sigma = 0.0
+            if cfg.pose_graph_sim3:
+                cur_ids = new_kf.kp_lm[ib_inl]
+                dup = (cur_ids >= 0) & (cur_ids != lm_inl)
+                if dup.sum() >= 8:
+                    from sift_tpu_torch.eval.ate import umeyama_alignment
+                    src = self.landmarks[cur_ids[dup]].astype(np.float64)
+                    dst = self.landmarks[lm_inl[dup]].astype(np.float64)
+                    s_u, _, _ = umeyama_alignment(src, dst, with_scale=True)
+                    s_u = float(np.clip(float(s_u), 0.2, 5.0))
+                    sigma = float(np.log(s_u))
+
+            # Edge: old -> new with the re-localized pose.
+            self.pose_edges.append(dict(
+                i=int(oi), j=new_idx, kind="loop",
+                z=self._rel_pose(old_kf.pose, pose),
+                w=cfg.loop_weight, sigma=sigma))
+            self.num_loop_closures += 1
+            # The accepted inliers tie new-keyframe keypoints to old map
+            # points: adopt or merge, so window BA constrains the loop
+            # through shared observations too.
+            self._fuse_loop_landmarks(new_kf, ib_inl, lm_inl)
+            if self.logger is not None:
+                self.logger.log("loop_closure", old=int(oi), new=new_idx,
+                                inliers=n_inl, rmse=rmse)
+            self._run_pose_graph()
+            break
+
+    def _fuse_loop_landmarks(self, new_kf: Keyframe, new_slots: np.ndarray,
+                             old_lm_ids: np.ndarray) -> None:
+        """Adopt or merge landmark identities across a loop closure: a
+        slot with no landmark adopts the old id; a slot carrying a
+        duplicate has every reference to the duplicate remapped, through
+        a union-find that merges towards the smaller (older) id."""
+        self._map_version += 1         # kp_lm changes invalidate the cache
+        cur = new_kf.kp_lm[new_slots]
+        adopt = cur < 0
+        new_kf.kp_lm[new_slots[adopt]] = old_lm_ids[adopt]
+
+        dup_pairs = [(int(d), int(o))
+                     for d, o in zip(cur[~adopt], old_lm_ids[~adopt])
+                     if d != o]
+        if not dup_pairs:
+            return
+        remap = np.arange(self.landmarks.shape[0], dtype=np.int64)
+
+        def find(i):
+            while remap[i] != i:
+                remap[i] = remap[remap[i]]   # path halving
+                i = remap[i]
+            return i
+
+        for d, o in dup_pairs:
+            rd, ro = find(d), find(o)
+            if rd != ro:
+                remap[max(rd, ro)] = min(rd, ro)
+        # Flatten to roots (each pass doubles the resolved depth).
+        flat = remap[remap]
+        while not np.array_equal(flat, remap):
+            remap, flat = flat, flat[flat]
+        remap = flat
+        for kf in self.keyframes:
+            has = kf.kp_lm >= 0
+            kf.kp_lm[has] = remap[kf.kp_lm[has]]
+        if self.logger is not None:
+            self.logger.log("landmark_fusion", merged=len(dup_pairs),
+                            adopted=int(adopt.sum()))
+
+    def _run_pose_graph(self):
+        """Optimize every keyframe pose over the edge set, padded to the
+        graph's static capacities (skipped when they are exceeded), node 0
+        fixed as the gauge; then re-anchor each landmark by its creating
+        keyframe's correction. One upload, one stage, one packed read."""
+        cfg = self.cfg
+        N = cfg.max_pose_graph_nodes
+        E = cfg.max_pose_graph_edges
+        n = len(self.keyframes)
+        if n > N or len(self.pose_edges) > E:
+            return
+
+        old_poses = np.stack([kf.pose for kf in self.keyframes])
+        poses = np.zeros((N, 6), np.float32)
+        poses[:n] = old_poses
+        # Refresh the odometry constraints to the current relative poses.
+        for e in self.pose_edges:
+            if e.get("kind") == "odom":
+                e["z"] = self._rel_pose(self.keyframes[e["i"]].pose,
+                                        self.keyframes[e["j"]].pose)
+        ei = np.zeros(E, np.int32)
+        ej = np.zeros(E, np.int32)
+        ez = np.zeros((E, 6), np.float32)
+        ew = np.zeros(E, np.float32)
+        sig = np.zeros(E, np.float32)
+        for k, e in enumerate(self.pose_edges):
+            ei[k], ej[k], ez[k], ew[k] = e["i"], e["j"], e["z"], e["w"]
+            sig[k] = float(e.get("sigma", 0.0))
+        fixed = np.ones(N, bool)
+        fixed[1:n] = False              # node 0 is the gauge
+
+        if cfg.pose_graph_sim3:
+            self._run_pose_graph_sim3(
+                _read(self._pgo_sim3(*self._upload_many(
+                    poses, ei, ej, ez, sig, ew, fixed)))[:n], n)
+        else:
+            out = _read(self._pgo(*self._upload_many(poses, ei, ej, ez, ew,
+                                                     fixed)))
+            # Keyframe poses, then landmarks by the rigid delta of their
+            # creating keyframe (T_new T_old^-1).
+            Rd, td = lie_np.pose_deltas(poses, out)
+            for k in range(n):
+                self.keyframes[k].pose = out[k]
+            ref = self.lm_ref_kf
+            self.landmarks = np.einsum("lij,lj->li", Rd[ref],
+                                       self.landmarks) + td[ref]
+        if self.logger is not None:
+            self.logger.log("pose_graph", nodes=n,
+                            edges=len(self.pose_edges),
+                            sim3=bool(cfg.pose_graph_sim3))
+
+    def _run_pose_graph_sim3(self, packed: np.ndarray, n: int):
+        """Apply a Sim(3) solve (`_pgo_sim3`'s buffer, first `n` rows):
+        keyframes take the (R, t) part of their new similarity, and
+        landmarks the full delta of their creating keyframe (X' = s_d R_d
+        X + t_d); the next window BA polishes the seam."""
+        sd = packed[:, 0]
+        Rd = packed[:, 1:10].reshape(n, 3, 3)
+        td = packed[:, 10:13]
+        R_new = packed[:, 13:22].reshape(n, 3, 3)
+        t_new = packed[:, 22:25]
+        for k in range(n):
+            self.keyframes[k].pose = _se3_log_np(R_new[k], t_new[k])
+        ref = self.lm_ref_kf
+        self.landmarks = (sd[ref, None] *
+                          np.einsum("lij,lj->li", Rd[ref], self.landmarks)
+                          + td[ref]).astype(np.float32)
+
+    # ----------------------------------------------------- map maintenance
+    def run_global_ba(self, mesh=None, cfg_ba=None,
+                      fix_first_n: int = 2) -> Dict[str, float]:
+        """Full-map bundle adjustment over every keyframe pose and
+        landmark, the first `fix_first_n` keyframes fixed. Buffers are
+        padded to multiples (cameras 8, landmarks 512, observations 2048);
+        one upload, one solve, one packed read. Updates keyframe poses and
+        landmarks in place; returns {"rmse", "n_obs", "n_cams", "n_lms"}."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "run_global_ba(mesh=...) (dist/ba_dist.py) is not ported")
+        C = len(self.keyframes)
+        if C < 2:
+            return dict(rmse=0.0, n_obs=0, n_cams=C, n_lms=0)
+
+        oc, ol, ouv = [], [], []
+        for ci, kf in enumerate(self.keyframes):
+            slots = np.nonzero(kf.kp_lm >= 0)[0]
+            oc.append(np.full(slots.shape[0], ci, np.int32))
+            ol.append(kf.kp_lm[slots])
+            ouv.append(np.stack([kf.kp["u"][slots], kf.kp["v"][slots]], -1))
+        oc = np.concatenate(oc)
+        ol = np.concatenate(ol).astype(np.int64)
+        ouv = np.concatenate(ouv).astype(np.float32)
+        uniq, inv = np.unique(ol, return_inverse=True)
+        L, O = uniq.shape[0], oc.shape[0]
+        if L < 8 or O < 24:
+            return dict(rmse=0.0, n_obs=O, n_cams=C, n_lms=L)
+
+        def pad_to(n, mult):
+            return -(-n // mult) * mult
+
+        Ccap, Lcap, Ocap = pad_to(C, 8), pad_to(L, 512), pad_to(O, 2048)
+        poses = np.zeros((Ccap, 6), np.float32)
+        poses[:C] = np.stack([kf.pose for kf in self.keyframes])
+        lms = np.zeros((Lcap, 3), np.float32)
+        lms[:L] = self.landmarks[uniq]
+        obs_cam = np.zeros(Ocap, np.int32)
+        obs_lm = np.zeros(Ocap, np.int32)
+        obs_uv = np.zeros((Ocap, 2), np.float32)
+        obs_valid = np.zeros(Ocap, bool)
+        obs_cam[:O] = oc
+        obs_lm[:O] = inv
+        obs_uv[:O] = ouv
+        obs_valid[:O] = True
+        fixed = np.zeros(Ccap, bool)
+        fixed[:min(fix_first_n, C)] = True
+        fixed[C:] = True                     # padding cameras pinned
+
+        bcfg = cfg_ba if cfg_ba is not None else self.cfg.ba
+        p, lm, o_c, o_l, o_uv, o_v, fx = self._upload_many(
+            poses, lms, obs_cam, obs_lm, obs_uv, obs_valid, fixed)
+        packed = _read(self._pack_ba(run_ba(p, self._K, lm, o_c, o_l, o_uv,
+                                            o_v, bcfg, fx)))
+        new_poses = packed[:Ccap * 6].reshape(Ccap, 6)
+        new_lms = packed[Ccap * 6:Ccap * 6 + Lcap * 3].reshape(Lcap, 3)
+        for ci, kf in enumerate(self.keyframes):
+            kf.pose = new_poses[ci].astype(np.float32)
+        self.landmarks[uniq] = new_lms[:L].astype(np.float32)
+        self._map_version += 1
+        rmse = float(packed[-2])
+        if self.logger is not None:
+            self.logger.log("global_ba", rmse=rmse, n_obs=O, n_cams=C,
+                            n_lms=L)
+        return dict(rmse=rmse, n_obs=int(O), n_cams=int(C), n_lms=int(L))
+
+    def cull_keyframes(self, redundancy: float = 0.9,
+                       min_other_refs: int = 3) -> Dict[str, int]:
+        """Remove redundant keyframes outside the newest BA window: those
+        whose associated landmarks are, for at least `redundancy` of them,
+        observed by `min_other_refs` other keyframes. Keyframe 0 (the
+        gauge) and loop-edge endpoints are never culled.
+
+        Keyframes are renumbered; odometry edges are rebuilt over the
+        surviving consecutive pairs, loop edges keep their measurement with
+        remapped endpoints, `lm_ref_kf` re-anchors each landmark to the
+        nearest surviving keyframe at or before its creator, and the global
+        descriptor index is rebuilt."""
+        n_kf = len(self.keyframes)
+        window_start = max(0, n_kf - self.cfg.window_size)
+        if window_start <= 1:
+            return dict(culled=0, kept=n_kf)
+
+        refs = np.zeros(max(self.landmarks.shape[0], 1), np.int64)
+        for kf in self.keyframes:
+            np.add.at(refs, kf.kp_lm[kf.kp_lm >= 0], 1)
+        protected = {0}
+        for e in self.pose_edges:
+            if e.get("kind") != "odom":
+                protected.add(e["i"])
+                protected.add(e["j"])
+
+        cull = []
+        for i in range(1, window_start):
+            if i in protected:
+                continue
+            ids = self.keyframes[i].kp_lm
+            ids = ids[ids >= 0]
+            if ids.size and np.mean(
+                    refs[ids] >= min_other_refs + 1) < redundancy:
+                continue
+            cull.append(i)
+            np.subtract.at(refs, ids, 1)  # removal affects later decisions
+        if not cull:
+            return dict(culled=0, kept=n_kf)
+
+        culled = set(cull)
+        keep = [i for i in range(n_kf) if i not in culled]
+        remap = {old: new for new, old in enumerate(keep)}
+        # Nearest surviving keyframe at or before each old index (old 0
+        # always survives).
+        anchor = np.zeros(n_kf, np.int64)
+        cur = 0
+        for old in range(n_kf):
+            if old in remap:
+                cur = remap[old]
+            anchor[old] = cur
+        self.keyframes = [self.keyframes[i] for i in keep]
+        self.lm_ref_kf = anchor[np.clip(self.lm_ref_kf, 0, n_kf - 1)]
+
+        loop_edges = []
+        for e in self.pose_edges:
+            if e.get("kind") == "odom":
+                continue
+            e2 = dict(e)
+            e2["i"], e2["j"] = remap[e["i"]], remap[e["j"]]
+            loop_edges.append(e2)
+        self.pose_edges = [
+            dict(i=k, j=k + 1, kind="odom",
+                 z=self._rel_pose(self.keyframes[k].pose,
+                                  self.keyframes[k + 1].pose), w=1.0)
+            for k in range(len(self.keyframes) - 1)] + loop_edges
+
+        self._global_index = None
+        for i, kf in enumerate(self.keyframes):
+            self._index_keyframe(i, kf)
+        self._map_version += 1
+        self._local_map_cache = None
+        if self.logger is not None:
+            self.logger.log("cull_keyframes", culled=len(cull),
+                            kept=len(keep))
+        return dict(culled=len(cull), kept=len(keep))
+
+    def compact_landmarks(self, min_refs: int = 1) -> Dict[str, int]:
+        """Drop landmarks referenced by fewer than `min_refs` keyframe
+        slots and renumber the rest (landmark array, `lm_ref_kf`, every
+        keyframe's `kp_lm`). `min_refs=1` is result-neutral: the dropped
+        rows (duplicates left behind by loop fusion) are unreachable from
+        any keyframe."""
+        n = self.landmarks.shape[0]
+        refs = np.zeros(n, np.int64)
+        for kf in self.keyframes:
+            np.add.at(refs, kf.kp_lm[kf.kp_lm >= 0], 1)
+        keep = refs >= min_refs
+        kept = int(keep.sum())
+        remap = np.full(n, -1, np.int64)
+        remap[keep] = np.arange(kept)
+        self.landmarks = self.landmarks[keep]
+        self.lm_ref_kf = self.lm_ref_kf[keep]
+        for kf in self.keyframes:
+            has = kf.kp_lm >= 0
+            kf.kp_lm[has] = remap[kf.kp_lm[has]]
+        self._map_version += 1
+        if self.logger is not None:
+            self.logger.log("compact", kept=kept, dropped=n - kept)
+        return dict(kept=kept, dropped=n - kept)
 
     # ------------------------------------------------------------ window BA
     def _run_window_ba(self, fix_first_n: int = 2):

@@ -2,10 +2,13 @@
 real-format fixtures: the TUM-RGBD sequence (10 RGB-D frames at 640x480,
 the JAX command's ATE bound of 0.05 m from
 `tests/e2e/test_real_format_fixtures.py::test_cli_sfm_tum_fixture`) and
-the KITTI sequence run monocular (10 frames at 120x400). The port runs on
-two CPU threads, light on a machine that runs other tests beside it."""
+the KITTI sequence run monocular (10 frames at 120x400), and the loop
+closure and full-map BA flags on the TUM sequence, whose output lines must
+be the JAX command's (but for the timing). The port runs on two CPU
+threads, light on a machine that runs other tests beside it."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -63,3 +66,27 @@ def test_cli_sfm_kitti_monocular(tmp_path, capsys):
     assert "ATE RMSE (sim3-aligned)" in out and _ate(out) < 0.1, out
     assert out.count("tracked=True") == 10
     assert np.loadtxt(traj).shape == (10, 3)
+
+
+def test_cli_sfm_loop_flags_print_the_jax_lines(tmp_path, capsys,
+                                                monkeypatch):
+    """`--loop-closure --global-ba` on the TUM fixture: the port prints the
+    JAX command's lines (frame, keyframe and landmark counts, the global
+    BA line, ATE and RPE); only the seconds and frames/s differ."""
+    from sift_tpu import cli as jax_cli
+
+    # The JAX command keeps its compilation cache under $HOME by default.
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "xla"))
+    args = ["sfm", TUM_DIR, "--loop-closure", "--global-ba"]
+    assert jax_cli.main(args) == 0
+    want = capsys.readouterr().out
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+
+    def lines(out):
+        return [re.sub(r"in [0-9.]+s \([0-9.]+ fps\)", "in T", line)
+                for line in out.splitlines()]
+
+    assert lines(got) == lines(want), (got, want)
+    assert any(line.startswith("global BA: ") for line in lines(got))
+    assert _ate(got) < 0.05
