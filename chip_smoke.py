@@ -103,10 +103,35 @@ Phases, each fatal on failure:
      the CPU plain path within PGO_CPU_TOL, ms per run, a profiled run's
      busy share (operator tables in OUT_DIR); (d) `save_map` ->
      `load_map` on the card gives the same state.
+  11. chunked tracking with asynchronous window BA (the JAX repo's SLAM
+     configuration): (a) phase 9b's 96 frames with chunked_tracking,
+     ba_async and extract_ahead, `process_sequence(batch=8)`, launches
+     48/48/48/0: bootstrap frame, state, keyframes within 20%, chunk
+     counts and fused promotions, and sim3 ATE held to the JAX package's
+     CPU run (CHUNK_JAX_*); frames/s and ms per chunk; the first chunk's
+     kernel calls held against their plain versions; (b) the first 48
+     frames at batch 16 with kf_max_interval 6: some chunk must promote
+     twice, ATE held to JAX's; (c) (a)'s first 48 frames with
+     extract_ahead off: positions bit-identical; each chunk's host syncs,
+     the event waits of applied window-BA results counted, with and
+     without a promotion; a warm chunk profiled (busy share;
+     `chiprun_out/chip_smoke_chunk_profile.txt`); (d) one chunk stage on
+     recorded inputs and fixed noise: no host sync before its read under
+     `set_sync_debug_mode("error")`, two card runs bit-identical, against
+     the CPU plain path inlier counts and promote_at exactly, poses within
+     CHUNK_CPU_POSE_TOL; ms of a stage and of its promotion slot.
+  12. stereo: (a) `cli sfm --stereo --batch 4` on the KITTI fixture: rc 0,
+     ATE < 0.1 m, launches 18/24/24/0; (b) phase 9b's scene with a right
+     camera 0.12 m to the right, 48 pairs: `process_sequence(rights=)`
+     within 1e-3 m of per-frame `process_frame(right=)`, keyframes and
+     se3-aligned ATE (no scale fit) held to the JAX run's (STEREO_JAX_*),
+     launches 48/48/48/0, first chunk's kernels against plain; (c)
+     `stereo_depths` on that chunk, card against the CPU plain path.
 Then it prints one `kernels` JSON line (with each kernel's launches on
 the twoview path as `launches_twoview`, on phase 9b's sequence as
-`launches_sfm` and on phase 10a's as `launches_loop`), the card line,
-and as its last
+`launches_sfm`, on phase 10a's as `launches_loop`, on phase 11a's as
+`launches_chunked` and on phase 12b's as `launches_stereo`), the card
+line, and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
 CUDA card or no `sift_tpu_torch` beside it.
@@ -252,6 +277,64 @@ LOOP_JAX_GBA_RMSE = 0.04985828325152397
 # ends 1.13e-4 apart in absolute terms (3e-5 relative; SE(3) 1.2e-6).
 PGO_NODES, PGO_EDGES, PGO_PAD = 256, 1024, 64
 PGO_ITERATIONS, PGO_CPU_TOL, PGO_REPS = 15, 1e-4, 3
+# Phase 11: chunked tracking with asynchronous window BA, the JAX repo's
+# SLAM configuration (benchmarks/slam_bench.py:90-116): phase 9b's 96
+# frames, PipelineConfig(chunked_tracking=True, ba_async=True) with
+# extract_ahead (on by default), process_sequence(batch=8); (b) the same
+# on the first 48 frames at batch 16 with kf_max_interval 6, so that
+# chunks promote twice (cut from 96 frames to keep the whole script near
+# ten minutes).
+CHUNK_LAUNCHES = SFM_LAUNCHES
+# (c) runs the first 48 frames with extract_ahead off (cut from 96 to keep
+# the whole script near ten minutes).
+CHUNK_AHEAD_FRAMES = 48
+CHUNK16_FRAMES = 48
+CHUNK16_LAUNCHES = {"gather_windows": 12, "refine_walk": 12,
+                    "descriptor_accumulate": 12, "streaming_top2": 0}
+# The reference: the JAX package's SfmPipeline with those configurations
+# (seed 0) on the same frames, run once on a CPU (JAX_PLATFORMS=cpu): (a)
+# state "tracking", every frame tracked, bootstrap at frame 2, keyframes
+# at frames 0, 2, 12, ..., 92, 1186 landmarks, 11 chunks through the
+# chunk stage with 9 fused promotions, and the sim3 ATE below; (b)
+# bootstrap at frame 2, 8 keyframes (0, 2, 8, 14, ..., 38), 2 chunks with
+# 4 fused promotions.
+CHUNK_JAX_BOOT, CHUNK_JAX_KEYFRAMES = 2, 11
+CHUNK_JAX_STATS = {"chunks": 11, "fused_promotions": 9}
+CHUNK_JAX_ATE = 0.0008025062666482943
+CHUNK16_JAX_KEYFRAMES = 8
+CHUNK16_JAX_STATS = {"chunks": 2, "fused_promotions": 4}
+CHUNK16_JAX_ATE = 0.00039958289050680284
+# (d) one chunk stage, card against the CPU plain path on the same inputs
+# and noise: poses within the CPU tests' TRACK_POSE of each coordinate.
+CHUNK_CPU_POSE_TOL = 2e-4
+# Phase 12: stereo. (a) `cli sfm` on the KITTI fixture with --stereo
+# --batch 4 (10 pairs at 120x400; the ATE bound of
+# tests/e2e/test_real_format_fixtures.py:75); (b) phase 9b's scene at
+# 640x480 with a right camera STEREO_BASELINE (4 steps) to the right of
+# each of STEREO_FRAMES left positions, default PipelineConfig:
+# process_sequence(rights=, batch=8) against per-frame process_frame(
+# right=) within 1e-3 m (tests/e2e/test_image_sfm.py:318's bound).
+STEREO_CLI_ATE = 0.1
+# Three chunks of two batches: the fourth octave of a 120x400 frame (15x50)
+# is too small for a gradient window (frontend/sift.py), so it gathers
+# none.
+STEREO_CLI_LAUNCHES = {"gather_windows": 18, "refine_walk": 24,
+                       "descriptor_accumulate": 24, "streaming_top2": 0}
+STEREO_FRAMES, STEREO_BASELINE = 48, 4 * SFM_STEP
+STEREO_LAUNCHES = {"gather_windows": 48, "refine_walk": 48,
+                   "descriptor_accumulate": 48, "streaming_top2": 0}
+STEREO_BATCHED_TOL = 1e-3
+# The reference: the JAX package's SfmPipeline(stereo_baseline=0.12) on the
+# same pairs, batched (seed 0), run once on a CPU: state "tracking",
+# bootstrap at frame 0 (stereo depth), keyframes at frames 0, 10, 20, 30,
+# 40, 1004 landmarks, and the se3-aligned (no scale fit) ATE below.
+STEREO_JAX_KEYFRAMES = 5
+STEREO_JAX_ATE = 0.0001641923357768493
+# (c) stereo_depths on one chunk, card against the CPU plain path: at
+# least this share of the left keypoints with the same accept flag and,
+# where both accept, the depth within 1e-5 relative (a near-tie of the
+# ratio test can fall either side of f32 rounding).
+STEREO_CPU_AGREE = 0.995
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -1904,6 +1987,401 @@ def loop_phase(torch, card: str) -> tuple:
     return launches, errs
 
 
+def hold_first_chunk(torch, label: str, first_chunk: dict,
+                     originals: dict) -> dict:
+    """The recorded kernel calls of a run's first chunk against their plain
+    versions; returns {kernel: max abs err}."""
+    from sift_tpu_torch.kernels.cuda import descriptor
+    plain = extraction_plain()
+    errs = {}
+    for name, calls in first_chunk.items():
+        errs[name] = 0.0
+        for args in calls:
+            got, want = originals[name](*args), plain[name](*args)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], hold_extraction_kernel(
+                torch, descriptor.TOLERANCE, name, got, want)[0])
+        print(f"{label} {name}: {len(calls)} calls of the first chunk held "
+              f"against plain, max_abs_err {errs[name]:.3g}", flush=True)
+    return errs
+
+
+def counted_run(torch, fn, n_calls: int = 4):
+    """Run `fn` with the launch counters set to 0 just before and read just
+    after, recording the extraction kernels' arguments; returns (fn's
+    result, seconds, launch counts, the first `n_calls` recorded calls of
+    each kernel, the original kernels)."""
+    from sift_tpu_torch.kernels import cuda as kcuda
+    with recording(extraction_kernels()) as (recorded, originals):
+        kcuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kcuda.launch_counts()
+        first = {name: calls[:n_calls] for name, calls in recorded.items()}
+        recorded.clear()
+    return out, secs, launches, first, originals
+
+
+def chunk_syncs(torch, pipe, log: list, card: str, profile_chunk: int):
+    """Wrap `pipe._process_chunk_tracked`: per chunk, the host syncs
+    (`count_syncs`) plus the event waits of applied window-BA results
+    (`_AsyncRead.wait`, which the sync debug mode does not see), whether it
+    promoted, and the sites; chunk number `profile_chunk` is profiled
+    instead (device busy share, operator table in OUT_DIR)."""
+    import sift_tpu_torch.slam.pipeline as sp
+    orig = pipe._process_chunk_tracked
+    wait = sp._AsyncRead.wait
+
+    def step(*a, **k):
+        held, waits = {}, []
+
+        def counted_wait(self):
+            waits.append(1)
+            return wait(self)
+
+        before = pipe.chunk_stats["fused_promotions"]
+        if len(log) == profile_chunk:
+            busy, wall = profile_busy(torch, lambda: (
+                held.setdefault("out", orig(*a, **k)),
+                torch.cuda.synchronize()), "chip_smoke_chunk_profile.txt",
+                card)
+            log.append(dict(profiled=(busy, wall), handled=held["out"]))
+            return held["out"]
+        sp._AsyncRead.wait = counted_wait
+        try:
+            sites = count_syncs(torch, lambda: held.setdefault(
+                "out", orig(*a, **k)))
+        finally:
+            sp._AsyncRead.wait = wait
+        log.append(dict(handled=held["out"], syncs=len(sites),
+                        waits=len(waits), sites=sorted(set(sites)),
+                        promoted=pipe.chunk_stats["fused_promotions"]
+                        - before))
+        return held["out"]
+
+    pipe._process_chunk_tracked = step
+
+
+def chunk_stage_check(torch, pipe, calls: list, card: str) -> dict:
+    """Phase 11d: one chunk stage (a chunk whose interval forces a
+    promotion) on its recorded inputs with fixed noise: no host sync before
+    the packed read under `set_sync_debug_mode("error")`, two card runs
+    bit-identical, and the CPU plain path on the same inputs: inlier counts
+    and promote_at exactly, poses within CHUNK_CPU_POSE_TOL."""
+    from sift_tpu_torch.geometry.ransac import gumbel
+    from sift_tpu_torch.slam.pipeline import SfmPipeline
+    cfg = pipe.cfg
+    args = next(a for a in calls
+                if a[3] + a[4] >= cfg.kf_max_interval
+                and a[4] == a[8].x.shape[0])
+    B = args[8].x.shape[0]
+    M = cfg.match.max_matches
+    P = max(1, B // 8)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    noise = (gumbel(gen, (B, cfg.tracking_ransac_hypotheses, M), "cuda"),
+             gumbel(gen, (P, 8, M), "cuda"))
+    stage = type(pipe)._track_chunk_promo.__get__(pipe)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = stage(noise, *args[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    second = stage(noise, *args[1:])
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    ms = event_ms(torch, lambda: stage(noise, *args[1:]), 2)
+    # The promotion slot's `_kf_track`, which runs whether the slot fires
+    # or not: its host time inside one more run of the stage (the stage is
+    # host-bound; phase 11c's busy share).
+    slot_s, kf_track = [], pipe._kf_track
+
+    def timed_slot(*a):
+        t0 = time.perf_counter()
+        out = kf_track(*a)
+        slot_s.append(time.perf_counter() - t0)
+        return out
+
+    pipe._kf_track = timed_slot
+    try:
+        t0 = time.perf_counter()
+        stage(noise, *args[1:])[0].cpu()
+        stage_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        del pipe._kf_track
+
+    def cpu(a):
+        return a.map(lambda t: t.cpu()) if hasattr(a, "map") else \
+            a.cpu() if torch.is_tensor(a) else a
+
+    cpu_pipe = SfmPipeline(SFM_INTRINSICS, cfg, seed=0, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu_pipe._track_chunk_promo(tuple(n.cpu() for n in noise),
+                                       *[cpu(a) for a in args[1:]])
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    g, w = first[0].cpu().numpy(), want[0].numpy()
+    fg, fw = g[:B * 8].reshape(B, 8), w[:B * 8].reshape(B, 8)
+    pose_err = float(np.abs(fg[:, :6] - fw[:, :6]).max())
+    pa_g, pa_w = g[B * 8:B * 8 + P], w[B * 8:B * 8 + P]
+    print(f"phase 11d chunk stage (B={B}, since0 {args[3]}): no host sync "
+          f"before its read under \"error\"; two card runs bit-identical: "
+          f"{same}; promote_at card {pa_g.tolist()} CPU {pa_w.tolist()}; "
+          f"inlier counts card {fg[:, 6].astype(int).tolist()} CPU "
+          f"{fw[:, 6].astype(int).tolist()}; poses within {pose_err:.3g}; "
+          f"card {ms:.3f} ms a stage (CUDA events), CPU plain {cpu_ms:.3f} ms;"
+          f" the promotion slot's `_kf_track` {1e3 * sum(slot_s):.3f} ms of "
+          f"a {stage_ms:.3f} ms stage (host clock, {len(slot_s)} slot); card "
+          f"{card}", flush=True)
+    if not same:
+        raise Failed("two card runs of the chunk stage differ")
+    if not np.array_equal(pa_g, pa_w) or (pa_g < 0).all() or \
+            not np.array_equal(fg[:, 6], fw[:, 6]):
+        raise Failed("chunk stage: card and CPU plain path disagree on "
+                     "promote_at or inlier counts")
+    if pose_err > CHUNK_CPU_POSE_TOL:
+        raise Failed(f"chunk stage poses {pose_err} apart, card vs CPU")
+    return dict(ms=ms, cpu_ms=cpu_ms, slot_ms=1e3 * sum(slot_s))
+
+
+def chunked_phase(torch, card: str) -> tuple:
+    """Phase 11: chunked tracking with asynchronous window BA. (a) phase
+    9b's frames through `process_sequence(batch=8)` held to the JAX run;
+    (b) 48 frames at batch 16 with kf_max_interval 6 (chunks promote
+    twice); (c) (a)'s first 48 frames with extract_ahead off,
+    bit-identical, its chunks' host syncs counted and one chunk profiled;
+    (d) one chunk stage alone. Returns (launch
+    counts of (a), {kernel: max abs err on (a)'s first chunk})."""
+    from sift_tpu_torch.config import PipelineConfig
+    from sift_tpu_torch.eval.ate import ate_rmse
+    from sift_tpu_torch.slam.pipeline import SfmPipeline
+
+    frames, gt = make_sfm_sequence()
+    frames = list(frames)
+    cfg = PipelineConfig(chunked_tracking=True, ba_async=True)
+    pipe = SfmPipeline(SFM_INTRINSICS, cfg, seed=0)
+    calls, chunk_s = [], []
+    stage, track = pipe._track_chunk_promo, pipe._process_chunk_tracked
+
+    def keep(*a):
+        calls.append(a)
+        return stage(*a)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        handled = track(*a, **k)
+        chunk_s.append((handled, time.perf_counter() - t0))
+        return handled
+
+    pipe._track_chunk_promo, pipe._process_chunk_tracked = keep, timed
+    res, secs, launches, first, originals = counted_run(
+        torch, lambda: pipe.process_sequence(frames, batch=SFM_BATCH))
+    del pipe._track_chunk_promo, pipe._process_chunk_tracked
+    est = pipe.positions()
+    if est.shape != (SFM_FRAMES, 3) or not np.isfinite(est).all():
+        raise Failed(f"chunked positions {est.shape} not finite")
+    ate = ate_rmse(est, gt, align=True, with_scale=True)
+    tracked = float(np.mean([r["tracked"] for r in res]))
+    boot = next(i for i, r in enumerate(res) if r["state"] == "tracking")
+    n_kf = len(pipe.keyframes)
+    handled_ms = [1e3 * t for h, t in chunk_s if h]
+    print(f"phase 11a: {SFM_FRAMES} frames, chunked + async BA, batch "
+          f"{SFM_BATCH}: {SFM_FRAMES / secs:.3f} frames/s ({secs:.3f} s); "
+          f"state {pipe.state}, bootstrap at frame {boot} (JAX "
+          f"{CHUNK_JAX_BOOT}), tracked share {tracked:.4f}, keyframes {n_kf} "
+          f"at {[r['frame_idx'] for r in res if r['is_keyframe']]} (JAX "
+          f"{CHUNK_JAX_KEYFRAMES}), chunk_stats {pipe.chunk_stats} (JAX "
+          f"{CHUNK_JAX_STATS}), landmarks {pipe.landmarks.shape[0]}, sim3 ATE "
+          f"{ate:.6f} m (JAX {CHUNK_JAX_ATE:.6f} m); ms per chunk through the "
+          f"chunk stage (host clock, read and promotions included): median "
+          f"{np.median(handled_ms):.3f}, min {min(handled_ms):.3f}, max "
+          f"{max(handled_ms):.3f} (n={len(handled_ms)}); launches "
+          f"{launches}; card {card}", flush=True)
+    if pipe.state != "tracking" or tracked < 0.9 or boot != CHUNK_JAX_BOOT:
+        raise Failed(f"chunked run: state {pipe.state}, tracked {tracked}, "
+                     f"bootstrap at {boot}")
+    if abs(n_kf - CHUNK_JAX_KEYFRAMES) > 0.2 * CHUNK_JAX_KEYFRAMES:
+        raise Failed(f"chunked run made {n_kf} keyframes, JAX "
+                     f"{CHUNK_JAX_KEYFRAMES}")
+    if pipe.chunk_stats["chunks"] != CHUNK_JAX_STATS["chunks"] or abs(
+            pipe.chunk_stats["fused_promotions"]
+            - CHUNK_JAX_STATS["fused_promotions"]) > \
+            0.2 * CHUNK_JAX_STATS["fused_promotions"]:
+        raise Failed(f"chunk_stats {pipe.chunk_stats}, JAX {CHUNK_JAX_STATS}")
+    if ate > max(1.5 * CHUNK_JAX_ATE, CHUNK_JAX_ATE + 0.01):
+        raise Failed(f"chunked ATE {ate} m against JAX's {CHUNK_JAX_ATE} m")
+    if launches != CHUNK_LAUNCHES:
+        raise Failed(f"phase 11a launch counts {launches} != "
+                     f"{CHUNK_LAUNCHES}")
+    errs = hold_first_chunk(torch, "phase 11a", first, originals)
+    del first
+
+    # (b) batch 16, kf_max_interval 6.
+    pipe16 = SfmPipeline(SFM_INTRINSICS, cfg.replace(kf_max_interval=6),
+                         seed=0)
+    res16, secs16, launches16, _, _ = counted_run(
+        torch, lambda: pipe16.process_sequence(frames[:CHUNK16_FRAMES],
+                                               batch=16), 0)
+    ate16 = ate_rmse(pipe16.positions(), gt[:CHUNK16_FRAMES], align=True,
+                     with_scale=True)
+    st16 = pipe16.chunk_stats
+    print(f"phase 11b: {CHUNK16_FRAMES} frames, batch 16, kf_max_interval 6: "
+          f"{CHUNK16_FRAMES / secs16:.3f} frames/s; keyframes "
+          f"{len(pipe16.keyframes)} (JAX {CHUNK16_JAX_KEYFRAMES}), "
+          f"chunk_stats {st16} (JAX {CHUNK16_JAX_STATS}), sim3 ATE "
+          f"{ate16:.6f} m (JAX {CHUNK16_JAX_ATE:.6f} m); launches "
+          f"{launches16}", flush=True)
+    if st16["fused_promotions"] <= st16["chunks"]:
+        raise Failed(f"batch 16: no chunk promoted twice ({st16})")
+    if ate16 > max(1.5 * CHUNK16_JAX_ATE, CHUNK16_JAX_ATE + 0.01) or \
+            pipe16.state != "tracking":
+        raise Failed(f"batch 16 ATE {ate16} m against JAX's "
+                     f"{CHUNK16_JAX_ATE} m")
+    if launches16 != CHUNK16_LAUNCHES:
+        raise Failed(f"phase 11b launch counts {launches16} != "
+                     f"{CHUNK16_LAUNCHES}")
+
+    # (c) extract_ahead off on the first CHUNK_AHEAD_FRAMES frames: their
+    # positions bit-identical to (a)'s (a frame's record is final once
+    # made); each chunk's syncs.
+    off = SfmPipeline(SFM_INTRINSICS, cfg.replace(extract_ahead=False), seed=0)
+    log = []
+    chunk_syncs(torch, off, log, card, profile_chunk=4)
+    off.process_sequence(frames[:CHUNK_AHEAD_FRAMES], batch=SFM_BATCH)
+    torch.cuda.synchronize()
+    head = est[:CHUNK_AHEAD_FRAMES]
+    same = np.array_equal(off.positions(), head)
+    counted = [e for e in log if "syncs" in e and e["handled"]]
+    plain = [e["syncs"] + e["waits"] for e in counted if not e["promoted"]]
+    promo = [e["syncs"] + e["waits"] for e in counted if e["promoted"]]
+    prof = next(e["profiled"] for e in log if "profiled" in e)
+
+    def site(promoted: bool) -> list:
+        return next((e["sites"] for e in counted
+                     if bool(e["promoted"]) == promoted), [])
+
+    print(f"phase 11c extract_ahead off, frames 0-{CHUNK_AHEAD_FRAMES - 1}: "
+          f"positions bit-identical to 11a's: {same} (max diff "
+          f"{np.abs(off.positions() - head).max():.3g}); host "
+          f"syncs per chunk, event waits counted: without a promotion "
+          f"{plain} (sites {site(False)}), with one {promo} (waits "
+          f"{[e['waits'] for e in counted if e['promoted']]}; sites "
+          f"{site(True)}); profiled warm chunk (frames 40-47): device busy "
+          f"{prof[0]:.3f} ms of {prof[1]:.3f} ms wall, busy share "
+          f"{prof[0] / prof[1]:.4f}; card {card}", flush=True)
+    if not same:
+        raise Failed("extract_ahead on and off gave other positions")
+
+    # (d) one chunk stage alone.
+    chunk_stage_check(torch, pipe, calls, card)
+    del calls
+    return launches, errs
+
+
+def stereo_phase(torch, card: str) -> tuple:
+    """Phase 12: stereo. (a) `cli sfm --stereo` on the KITTI fixture; (b)
+    the rendered stereo sequence batched against per frame; (c)
+    `stereo_depths` card against the CPU plain path on one chunk. Returns
+    (launch counts of (b), {kernel: max abs err on (b)'s first chunk})."""
+    import io
+    from sift_tpu_torch import cli
+    from sift_tpu_torch.config import PipelineConfig
+    from sift_tpu_torch.eval.ate import ate_rmse
+    from sift_tpu_torch.matching.stereo import stereo_depths_batch
+    from sift_tpu_torch.slam.pipeline import SfmPipeline
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = io.StringIO()
+    kitti = os.path.join(here, "tests", "fixtures", "kitti_mini")
+    with contextlib.redirect_stdout(out):
+        rc, secs, launches_cli, _, _ = counted_run(torch, lambda: cli.main(
+            ["sfm", kitti, "--format", "kitti", "--sequence", "05",
+             "--stereo", "--batch", "4"]), 0)
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"phase 12a cli sfm --stereo: {line}", flush=True)
+    ok = rc == 0 and "ATE RMSE (se3-aligned)" in text
+    ate_cli = float(text.split("ATE RMSE")[1].split(":")[1].split("m")[0]) \
+        if ok else float("nan")
+    print(f"phase 12a: rc {rc} in {secs:.3f} s, ATE {ate_cli} m (bound "
+          f"{STEREO_CLI_ATE}), launches {launches_cli}", flush=True)
+    if not ok or not ate_cli < STEREO_CLI_ATE:
+        raise Failed(f"cli sfm --stereo: rc {rc}, ATE {ate_cli}")
+    if launches_cli != STEREO_CLI_LAUNCHES:
+        raise Failed(f"phase 12a launch counts {launches_cli} != "
+                     f"{STEREO_CLI_LAUNCHES}")
+
+    xs = [SFM_STEP * i for i in range(STEREO_FRAMES)]
+    frames, gt = make_sfm_sequence(xs=xs + [x + STEREO_BASELINE for x in xs])
+    left, right = list(frames[:STEREO_FRAMES]), list(frames[STEREO_FRAMES:])
+    gt = gt[:STEREO_FRAMES]
+    cfg = PipelineConfig()
+    per = SfmPipeline(SFM_INTRINSICS, cfg, seed=0,
+                      stereo_baseline=STEREO_BASELINE)
+    t0 = time.perf_counter()
+    for a, b in zip(left, right):
+        per.process_frame(a, right=b)
+    per.finalize()
+    per_s = time.perf_counter() - t0
+    bat = SfmPipeline(SFM_INTRINSICS, cfg, seed=0,
+                      stereo_baseline=STEREO_BASELINE)
+    pairs = []
+    stereo = bat._stereo_batch
+
+    def keep(kp_l, kp_r):
+        pairs.append((kp_l, kp_r))
+        return stereo(kp_l, kp_r)
+
+    bat._stereo_batch = keep
+    _, bat_s, launches, first, originals = counted_run(
+        torch, lambda: bat.process_sequence(left, rights=right, batch=8))
+    diff = float(np.abs(bat.positions() - per.positions()).max())
+    ate = ate_rmse(bat.positions(), gt, align=True, with_scale=False)
+    n_kf = len(bat.keyframes)
+    print(f"phase 12b: {STEREO_FRAMES} stereo pairs at {SFM_H}x{SFM_W}, "
+          f"baseline {STEREO_BASELINE:.2f} m: batched "
+          f"{STEREO_FRAMES / bat_s:.3f} frames/s, per frame "
+          f"{STEREO_FRAMES / per_s:.3f}; batched against per frame within "
+          f"{diff:.3g} m (bound {STEREO_BATCHED_TOL}); state "
+          f"{bat.state}, keyframes {n_kf} (JAX {STEREO_JAX_KEYFRAMES}), se3 "
+          f"ATE (no scale fit) {ate:.6f} m (JAX {STEREO_JAX_ATE:.6f} m); "
+          f"launches {launches}; card {card}", flush=True)
+    if bat.state != "tracking" or diff > STEREO_BATCHED_TOL:
+        raise Failed(f"stereo batched vs per frame {diff} m")
+    if abs(n_kf - STEREO_JAX_KEYFRAMES) > 0.2 * STEREO_JAX_KEYFRAMES:
+        raise Failed(f"stereo run made {n_kf} keyframes, JAX "
+                     f"{STEREO_JAX_KEYFRAMES}")
+    if ate > max(1.5 * STEREO_JAX_ATE, STEREO_JAX_ATE + 0.01):
+        raise Failed(f"stereo ATE {ate} m against JAX's {STEREO_JAX_ATE} m")
+    if launches != STEREO_LAUNCHES:
+        raise Failed(f"phase 12b launch counts {launches} != "
+                     f"{STEREO_LAUNCHES}")
+    errs = hold_first_chunk(torch, "phase 12b", first, originals)
+    del first
+
+    # (c) stereo_depths on the first chunk, card vs CPU.
+    kp_l, kp_r = pairs[0]
+    fx = float(SFM_INTRINSICS[0])
+    card_z = stereo_depths_batch(kp_l, kp_r, fx, STEREO_BASELINE)
+    ms = event_ms(torch, lambda: stereo_depths_batch(kp_l, kp_r, fx,
+                                                     STEREO_BASELINE), 10)
+    cpu_z = stereo_depths_batch(kp_l.map(lambda t: t.cpu()),
+                                kp_r.map(lambda t: t.cpu()), fx,
+                                STEREO_BASELINE).numpy()
+    card_z = card_z.cpu().numpy()
+    valid = kp_l.valid.cpu().numpy()
+    same = ((card_z > 0) == (cpu_z > 0)) & (
+        np.abs(card_z - cpu_z) <= 1e-5 * np.maximum(cpu_z, 1e-6))
+    agree = float(same[valid].mean())
+    print(f"phase 12c stereo_depths on the first chunk ({int(valid.sum())} "
+          f"left keypoints, {int((cpu_z > 0).sum())} with depth on the CPU): "
+          f"card and CPU agree on {agree:.5f} (bound {STEREO_CPU_AGREE}); "
+          f"{ms:.3f} ms a chunk (CUDA events); card {card}", flush=True)
+    if agree < STEREO_CPU_AGREE:
+        raise Failed(f"stereo_depths card vs CPU agree on {agree}")
+    return launches, errs
+
+
 def finish(torch, card: str) -> int:
     """Print the card line and, as the last line, the result."""
     print(f"card: {card}", flush=True)
@@ -2116,6 +2594,8 @@ def main() -> int:
         ba_phase(torch, card)
         sfm_launches, sfm_err = sfm_phase(torch, card)
         loop_launches, loop_err = loop_phase(torch, card)
+        chunked_launches, chunked_err = chunked_phase(torch, card)
+        stereo_launches, stereo_err = stereo_phase(torch, card)
     except Failed as e:
         return fail(str(e))
     size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
@@ -2125,6 +2605,10 @@ def main() -> int:
         r["max_abs_err_sfm"] = sfm_err[r["name"]]
         r["launches_loop"] = loop_launches[r["name"]]
         r["max_abs_err_loop"] = loop_err[r["name"]]
+        r["launches_chunked"] = chunked_launches[r["name"]]
+        r["max_abs_err_chunked"] = chunked_err[r["name"]]
+        r["launches_stereo"] = stereo_launches[r["name"]]
+        r["max_abs_err_stereo"] = stereo_err[r["name"]]
         r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
         if r["name"] in at_size:
             t = at_size[r["name"]]
@@ -2138,6 +2622,8 @@ def main() -> int:
     row["launches_twoview"] = twoview_launches["streaming_top2"]
     row["launches_sfm"] = sfm_launches["streaming_top2"]
     row["launches_loop"] = loop_launches["streaming_top2"]
+    row["launches_chunked"] = chunked_launches["streaming_top2"]
+    row["launches_stereo"] = stereo_launches["streaming_top2"]
     rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)

@@ -15,12 +15,13 @@ the centre) and estimates the camera-B-from-camera-A pose (5-point
 essential RANSAC, cheirality, Gauss-Newton polish). `sfm` runs the
 incremental SfM/SLAM loop (`slam/pipeline.py::SfmPipeline`) over a TUM-RGBD
 sequence (RGB-D unless `--no-depth`) or a KITTI odometry sequence
-(monocular) and reports ATE and RPE against the ground truth, with loop
-closure (`--loop-closure`, `--sim3`), landmark compaction
-(`--compact-every`) and a final full-map BA (`--global-ba`) on request.
-Each takes the JAX command's flags and prints its output lines; the JAX
-`sfm` flags whose paths are not ported (`--chunked`, `--ba-async`,
-`--stereo`, `--plot`) raise `NotImplementedError`. `--device` (default `cuda`) picks where everything
+(monocular, or stereo with `--stereo`) and reports ATE and RPE against
+the ground truth, with chunked tracking (`--chunked`), asynchronous window
+BA (`--ba-async`), loop closure (`--loop-closure`, `--sim3`), landmark
+compaction (`--compact-every`) and a final full-map BA (`--global-ba`) on
+request. Each takes the JAX command's flags and prints its output lines;
+`sfm --plot`, whose path is not ported, raises `NotImplementedError`.
+`--device` (default `cuda`) picks where everything
 runs; RANSAC draws from a `torch.Generator` seeded with 0 on that device.
 """
 
@@ -224,8 +225,6 @@ def cmd_twoview(args) -> int:
     return 0 if success else 1
 
 
-_SFM_REFUSED = (("chunked", "--chunked"), ("ba_async", "--ba-async"),
-                ("stereo", "--stereo"), ("plot", "--plot"))
 
 
 def cmd_sfm(args) -> int:
@@ -239,9 +238,8 @@ def cmd_sfm(args) -> int:
     from sift_tpu_torch.slam.pipeline import SfmPipeline
     from sift_tpu_torch.utils.metrics import MetricsLogger
 
-    for attr, flag in _SFM_REFUSED:
-        if getattr(args, attr):
-            raise NotImplementedError(f"sfm {flag} is not ported")
+    if args.plot:
+        raise NotImplementedError("sfm --plot is not ported")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.format == "tum":
@@ -250,10 +248,17 @@ def cmd_sfm(args) -> int:
     else:
         seq = load_kitti_odometry(args.path, sequence=args.sequence,
                                   max_frames=args.max_frames,
-                                  stride=args.stride)
+                                  stride=args.stride, stereo=args.stereo)
+    use_stereo = args.format == "kitti" and args.stereo and \
+        seq.baseline is not None and any(f.gray_right is not None
+                                         for f in seq)
 
     logger = MetricsLogger(args.metrics) if args.metrics else None
     kw = {}
+    if args.chunked:
+        kw["chunked_tracking"] = True
+    if args.ba_async:
+        kw["ba_async"] = True
     if args.loop_closure or args.sim3:
         kw["enable_loop_closure"] = True
     if args.sim3:
@@ -263,18 +268,24 @@ def cmd_sfm(args) -> int:
     if args.compact_every:
         kw["compact_interval_kf"] = args.compact_every
     pipe = SfmPipeline(seq.intrinsics, PipelineConfig(**kw), logger=logger,
-                       device=args.device)
+                       device=args.device,
+                       stereo_baseline=seq.baseline if use_stereo else None)
     use_depth = args.format == "tum" and not args.no_depth
     t0 = time.perf_counter()
-    if args.batch > 1:
+    # Stereo batching needs every right frame (fixed chunk shapes); a
+    # sequence with missing right images takes the per-frame path, which
+    # tracks those frames monocular.
+    all_rights = use_stereo and all(f.gray_right is not None for f in seq)
+    if args.batch > 1 and (not use_stereo or all_rights):
         results = pipe.process_sequence(
             [f.gray for f in seq],
             depths=[f.depth for f in seq] if use_depth else None,
+            rights=[f.gray_right for f in seq] if use_stereo else None,
             batch=args.batch)
     else:
-        results = [pipe.process_frame(f.gray,
-                                      depth=f.depth if use_depth else None)
-                   for f in seq]
+        results = [pipe.process_frame(
+            f.gray, depth=f.depth if use_depth else None,
+            right=f.gray_right if use_stereo else None) for f in seq]
         pipe.finalize()
     if args.verbose:
         for r in results:
@@ -291,10 +302,10 @@ def cmd_sfm(args) -> int:
 
     gt = seq.gt_positions()
     if gt is not None and len(pipe.trajectory) == gt.shape[0]:
-        # RGB-D trajectories are metric (rigid alignment); monocular ones
-        # are scale-free (similarity alignment). One alignment serves ATE
-        # and RPE.
-        metric = use_depth
+        # RGB-D and stereo trajectories are metric (rigid alignment);
+        # monocular ones are scale-free (similarity alignment). One
+        # alignment serves ATE and RPE.
+        metric = use_depth or use_stereo
         est = np.asarray(pipe.positions(), np.float64)
         gt64 = np.asarray(gt, np.float64)
         s, R, t = umeyama_alignment(est, gt64, with_scale=not metric)
@@ -388,11 +399,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sliding BA window size (keyframes)")
     ps.add_argument("--device", default="cuda",
                     help="where to run: cuda (default) or cpu")
-    # The JAX command's options whose paths are not ported: refused.
-    ps.add_argument("--stereo", action="store_true", help="not ported")
+    ps.add_argument("--stereo", action="store_true",
+                    help="KITTI: use image_1 for stereo depth (metric scale)")
+    ps.add_argument("--chunked", action="store_true",
+                    help="device-resident chunked tracking (one stage and "
+                         "one read per extraction batch)")
+    ps.add_argument("--ba-async", action="store_true",
+                    help="deferred (asynchronous) window BA")
+    # The JAX command's option whose path is not ported: refused.
     ps.add_argument("--plot", help="not ported")
-    ps.add_argument("--chunked", action="store_true", help="not ported")
-    ps.add_argument("--ba-async", action="store_true", help="not ported")
     # Loop closure and map maintenance.
     ps.add_argument("--loop-closure", action="store_true",
                     help="enable loop closure + pose-graph optimization")

@@ -66,8 +66,13 @@ def orientation_from_windows(gx, gy, oy0, ox0, sigma_within, in_bounds,
     wgt = torch.exp(-(ox * ox + oy * oy).reshape(K, -1)
                     / (2.0 * sw * sw)[:, None])
     bin_idx = torch.clamp((ang / 10.0).to(torch.int64), 0, 35)
+    # An accumulating `index_put_`, not `scatter_add_`: on the card it sums
+    # each bin's votes in a fixed order (by sorting), where `scatter_add_`'s
+    # float atomics make the bins, and every orientation after them, part
+    # in the last bits from run to run.
+    rows_k = torch.arange(K, device=gx.device)[:, None].expand_as(bin_idx)
     hist = torch.zeros((K, 36), dtype=torch.float32, device=gx.device)
-    hist.scatter_add_(1, bin_idx, mag * wgt)
+    hist.index_put_((rows_k, bin_idx), mag * wgt, accumulate=True)
     hist = _circular_smooth(hist, passes=2)
     hist = torch.where(in_bounds[:, None], hist, torch.zeros_like(hist))
     return peaks_from_histogram(hist, max_peaks, cfg.ori_peak_rel)

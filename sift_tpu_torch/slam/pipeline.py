@@ -38,8 +38,31 @@ optimizes the graph (SE(3), or Sim(3) with `pose_graph_sim3`) in one
 stage with one packed read; landmarks follow their creating keyframe's
 correction. Map maintenance: `compact_landmarks` (also every
 `compact_interval_kf` promotions), `cull_keyframes`, `run_global_ba`,
-`save_map` / `load_map`. Not ported (each raises `NotImplementedError`
-naming the option): chunked tracking, asynchronous BA, stereo and meshes.
+`save_map` / `load_map`.
+
+Chunked tracking (`chunked_tracking`, `process_sequence` only): a whole
+extraction chunk is tracked by one stage (`_track_chunk_promo`) with one
+packed read: per frame, constant-velocity prediction, guided local-map
+matching and robust pose GN with the velocity carried on the device; the
+promotion policy runs on the device too, and up to B // 8 promotions'
+keyframe matches ride the same buffer (8-frame sub-chunks above 16 frames
+re-track against the latest promoted frame). Which promotion slot fires
+is selected by `torch.where`, never asked of the host: the stage makes no
+host sync before its read. `extract_ahead` starts the next chunk's
+extraction after that read.
+
+Asynchronous window BA (`ba_async`): a solve's result is copied to pinned
+host memory behind the work that follows (`_AsyncRead`, a recorded CUDA
+event) and applied at the next promotion or before any operation that
+rewrites the map (pose graph, compaction, culling, global BA, save), at
+most two solves in flight; tracking in between runs against the pre-BA
+map. `ba_defer_kickoff` starts a chunk promotion's solve after the next
+chunk's tracking stage.
+
+Stereo (`stereo_baseline=`, `process_frame(right=)`,
+`process_sequence(rights=)`): per-keypoint depths from rectified pairs
+(`matching/stereo.py`) feed the RGB-D path. Not ported (each raises
+`NotImplementedError` naming the option): meshes (`dist/`).
 """
 
 from __future__ import annotations
@@ -62,6 +85,8 @@ from sift_tpu_torch.geometry.ransac import Noise, gumbel
 from sift_tpu_torch.geometry.triangulation import triangulate_dlt
 from sift_tpu_torch.matching.matcher import (match_descriptors,
                                              match_descriptors_guided)
+from sift_tpu_torch.matching.stereo import (stereo_depths,
+                                            stereo_depths_batch)
 from sift_tpu_torch.slam.pose_graph import (PoseGraph, Sim3Graph,
                                             optimize_pose_graph,
                                             optimize_pose_graph_sim3)
@@ -76,16 +101,52 @@ _PGO_ITERATIONS = 15
 # The loop probe's landmark table is padded to a multiple of this.
 _LM_TABLE_PAD = 4096
 
-_REFUSED_OPTIONS = (
-    ("chunked_tracking", "device-resident chunked tracking"),
-    ("ba_async", "asynchronous window BA"),
-    ("ba_defer_kickoff", "the deferred window-BA kickoff"),
-)
-
-
 def _read(t: torch.Tensor) -> np.ndarray:
     """The stage's one device-to-host read."""
     return t.detach().cpu().numpy()
+
+
+class _AsyncRead:
+    """A device-to-host read started now and waited for later (the JAX
+    package's `copy_to_host_async`): on the card a non-blocking copy into
+    pinned host memory and a CUDA event recorded behind it, on the CPU the
+    tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t.detach()
+
+    def wait(self) -> np.ndarray:
+        """The host copy, once the copy has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+def _scatter_last(pos, hasv, idx, src_pos, src_has):
+    """pos[idx] = src_pos, hasv[idx] = src_has, the last row winning where
+    rows share a slot (numpy's assignment order): the winner is each
+    slot's largest row index, an order-free max, so the result is the same
+    on every device and every run."""
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    winner = torch.full(hasv.shape, -1, dtype=torch.int64,
+                        device=idx.device).scatter_reduce(0, idx, rows, "amax")
+    hit = winner >= 0
+    w = torch.clamp_min(winner, 0)
+    return (torch.where(hit[:, None], src_pos[w], pos),
+            torch.where(hit, src_has[w], hasv))
+
+
+def _rows_to(t: torch.Tensor, n: int) -> torch.Tensor:
+    """The first n rows of `t`, zero-padded below when it has fewer."""
+    pad = t.new_zeros((max(n - t.shape[0], 0),) + tuple(t.shape[1:]))
+    return torch.cat([t, pad])[:n]
 
 
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -154,15 +215,10 @@ class SfmPipeline:
         tensor on `device`. `device`: where every stage runs; None means
         "cuda", which raises without a card (pass "cpu" for the plain
         path). `seed` seeds the pipeline's `torch.Generator` on that
-        device."""
+        device. `stereo_baseline`: metres, enables the rectified-stereo
+        depth path (`process_frame(..., right=...)`, `process_sequence(...,
+        rights=...)`)."""
         self.cfg = cfg or PipelineConfig()
-        for name, what in _REFUSED_OPTIONS:
-            if getattr(self.cfg, name):
-                raise NotImplementedError(
-                    f"PipelineConfig.{name}=True ({what}) is not ported")
-        if stereo_baseline is not None:
-            raise NotImplementedError(
-                "stereo_baseline (matching/stereo.py) is not ported")
         if mesh is not None:
             raise NotImplementedError("mesh (dist/frontend_dist.py) is not "
                                       "ported")
@@ -174,6 +230,7 @@ class SfmPipeline:
         self._K = _upload(self.K, self.device)
         self.logger = logger
         self.frontend = frontend
+        self.stereo_baseline = stereo_baseline
         self._seed = seed
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -202,6 +259,22 @@ class SfmPipeline:
 
         # Global descriptor index (lazy; built at the first keyframe).
         self._global_index = None
+
+        # Chunked tracking: chunks handled by the one-stage path, and the
+        # keyframe promotions that rode their packed buffers.
+        self.chunk_stats = {"chunks": 0, "fused_promotions": 0}
+        # In-flight asynchronous window-BA solves, oldest first: (read,
+        # window keyframes, landmark ids, L, O, chunk sequence number).
+        # Between a solve and its apply the landmark array only appends,
+        # so its landmark ids stay valid; operations that rewrite the map
+        # apply them first (`_flush_ba`).
+        self._pending_ba = []
+        self._ba_kickoff = None   # a deferred `_run_window_ba` (chunk path)
+        self._chunk_seq = 0       # chunk counter: ages pending solves
+        # When a dict, the chunk stage and the window BA stash (stage,
+        # args) of their last call under "chunk" and "ba", so that a
+        # benchmark can re-time them at the shapes of a real run.
+        self._capture = None
 
         self._ba_cfg_track = self.cfg.ba.replace(
             max_iterations=self.cfg.ba_tracking_iterations,
@@ -348,6 +421,180 @@ class SfmPipeline:
             m.idx_a.to(f32), m.idx_b.to(f32), m.valid.to(f32),
             inliers.to(f32), tri.reshape(-1), pose,
             inliers.sum().to(f32)[None], rmse[None]])
+
+    def _stereo(self, kp_l: Keypoints, kp_r: Keypoints) -> torch.Tensor:
+        """(N,) metric depths of the left keypoints, 0 where no stereo
+        match."""
+        return stereo_depths(kp_l, kp_r, float(self.K[0]),
+                             float(self.stereo_baseline),
+                             subpixel=bool(self.cfg.sift.subpixel))
+
+    def _stereo_batch(self, kp_l: Keypoints, kp_r: Keypoints) -> torch.Tensor:
+        """(B, N) depths of a chunk of stereo pairs."""
+        return stereo_depths_batch(kp_l, kp_r, float(self.K[0]),
+                                   float(self.stereo_baseline),
+                                   subpixel=bool(self.cfg.sift.subpixel))
+
+    def _chunk_scan(self, noise: torch.Tensor, pose0, vel0, desc_ref,
+                    valid_ref, lms_ref, kp_batch: Keypoints):
+        """The chunk trackers' per-frame scan: constant-velocity prediction
+        (`lie.boxplus`), then `_track_local` from it; a frame that tracks
+        (half `keyframe_min_inliers`) moves the pose and sets the velocity
+        to log(T_prev^-1 T_new) on the device, one that does not keeps the
+        pose and zeroes the velocity. `noise`: the (B, H, M) Gumbel draws of
+        the frames' pose RANSAC. Returns ((pose, vel), (B, 8) [pose (6),
+        n_inl, rmse])."""
+        min_inl = self.cfg.keyframe_min_inliers // 2
+        pose_prev, vel = pose0, vel0
+        outs = []
+        for b in range(kp_batch.x.shape[0]):
+            pred = lie.boxplus(pose_prev, vel)
+            out = self._track_local(noise[b], pred, desc_ref, valid_ref,
+                                    lms_ref, kp_batch.map(lambda a: a[b]))
+            tracked = out[6] >= min_inl
+            pose_use = torch.where(tracked, out[:6], pose_prev)
+            Rp, tp = lie.se3_exp(pose_prev)
+            Rn, tn = lie.se3_exp(pose_use)
+            Rr, tr = lie.se3_compose(*lie.se3_inverse(Rp, tp), Rn, tn)
+            vel = torch.where(tracked, lie.se3_log(Rr, tr), 0.0)
+            outs.append(torch.cat([pose_use, out[6:]]))
+            pose_prev = pose_use
+        return (pose_prev, vel), torch.stack(outs)
+
+    def _promo_lm_table(self, payload, lms_kf_p, has_lm_kf_p, N: int):
+        """The device replay of `_promote_keyframe`'s landmark bookkeeping:
+        the promoted frame's per-keypoint landmark table [(N, 3) positions,
+        (N,) has] from a `_kf_track` payload against keyframe tables
+        (lms_kf_p, has_lm_kf_p). Inlier 2D-3D matches adopt the reference
+        keyframe's landmark, then healthy no-landmark triangulations spawn
+        one, in the host's order. Rows that take no part go to a dump slot
+        N; where two rows write one slot, the later row wins, as in the
+        host's numpy assignment (`_scatter_last`)."""
+        M = self.cfg.match.max_matches
+        ia = payload[0:M].long()
+        ib = payload[M:2 * M].long()
+        inl = payload[3 * M:4 * M] > 0.5
+        tri = payload[4 * M:8 * M].reshape(M, 4)
+        take_lm = inl & has_lm_kf_p[ia]
+        tri_ok = tri[:, 3] > 0.5          # already masked to no-lm rows
+        pos = torch.zeros((N + 1, 3), dtype=torch.float32,
+                          device=payload.device)
+        hasv = torch.zeros((N + 1,), dtype=torch.bool, device=payload.device)
+        pos, hasv = _scatter_last(pos, hasv, torch.where(take_lm, ib, N),
+                                  lms_kf_p[ia], take_lm)
+        pos, hasv = _scatter_last(pos, hasv, torch.where(tri_ok, ib, N),
+                                  tri[:, :3], tri_ok)
+        return pos[:N], hasv[:N]
+
+    def _track_chunk_promo(self, noise, pose0, vel0, since0: int, nf: int,
+                           desc_ref, valid_ref, lms_ref, kp_batch: Keypoints,
+                           pose_kf, desc_kf, valid_kf, lms_kf, has_lm_kf,
+                           uv_kf):
+        """Chunk tracking with the keyframe promotions fused in; no host
+        sync from its inputs to its packed output.
+
+        Replays the host's promotion policy on the device: the first frame
+        b < nf with n_inl < kf_min_tracked or since0 + b + 1 >=
+        kf_max_interval, provided no frame so far lost tracking; for that
+        frame, `_kf_track` (guided keyframe match, localization, candidate
+        triangulation) against the last keyframe's tensors. Every slot runs
+        `_kf_track`, and `torch.where` on the device keeps its payload (or
+        zeros) and the reference it hands on, where JAX's `lax.cond` runs
+        the branch only when a slot fires. A chunk of B frames has up to
+        max(1, B // 8) slots; a later slot matches against the previous
+        promoted frame, whose landmark table is rebuilt from the previous
+        payload (`_promo_lm_table`). Chunks of more than 16 frames with B %
+        8 == 0 track in 8-frame sub-chunks, each after the first against
+        the latest promoted frame's table once a slot has fired.
+
+        `noise`: a generator, from which the stage draws each frame's
+        (H, M) Gumbel noise and then each slot's (8, M) at its start, or
+        that pair of tensors ((B, H, M), (P, 8, M)). since0, nf: host
+        ints. Returns (packed, desc_p, valid_p per slot), packed =
+        [per-frame (B, 8) | promote_at (P) | payloads (P, 8M+8) | metas
+        (P, 4N)]."""
+        cfg = self.cfg
+        B, N = kp_batch.x.shape
+        M = cfg.match.max_matches
+        P = max(1, B // 8)
+        Mloc = desc_ref.shape[0]
+        f32 = torch.float32
+        dev = pose0.device
+        if isinstance(noise, torch.Generator):
+            noise = (gumbel(noise, (B, cfg.tracking_ransac_hypotheses, M),
+                            dev),
+                     gumbel(noise, (P, _KF_HYPOTHESES, M), dev))
+        frame_noise, slot_noise = noise
+        min_inl = cfg.keyframe_min_inliers // 2
+        subs = [8] * (B // 8) if B % 8 == 0 and B > 16 else [B]
+
+        pose_c, vel_c = pose0, vel0
+        since_last = since0                 # at the last frame seen
+        all_tracked = torch.ones((), dtype=torch.bool, device=dev)
+        any_promo = torch.zeros((), dtype=torch.bool, device=dev)
+        # The reference of the next slot: the last keyframe, then the
+        # latest promoted frame (selected per slot, so it always holds a
+        # frame that was promoted).
+        ref = dict(pose=pose_kf, desc=desc_kf, valid=valid_kf, lms=lms_kf,
+                   has=has_lm_kf, uv=uv_kf)
+        outs, promote_ats, payloads, metas, desc_out = [], [], [], [], []
+        slot = si = 0
+        for s, SUB in enumerate(subs):
+            tr = (desc_ref, valid_ref, lms_ref)
+            if s > 0:
+                # Once a slot has fired, track against the latest promoted
+                # frame's table, padded to the local map's size.
+                tr = tuple(torch.where(any_promo, _rows_to(new, Mloc), old)
+                           for new, old in zip((ref["desc"], ref["valid"]
+                                                & ref["has"], ref["lms"]), tr))
+            kp_sub = kp_batch.map(lambda a: a[si:si + SUB])
+            (pose_c, vel_c), out_s = self._chunk_scan(
+                frame_noise[si:si + SUB], pose_c, vel_c, *tr, kp_sub)
+            outs.append(out_s)
+            n_inl = out_s[:, 6].to(torch.int64)
+            iota = torch.arange(SUB, device=dev)
+            real = (si + iota) < nf
+            all_tracked = all_tracked & torch.all(~real | (n_inl >= min_inl))
+            low = n_inl < cfg.kf_min_tracked
+            since = since_last + 1 + iota
+            gate = torch.ones((SUB,), dtype=torch.bool, device=dev)
+            prev_any = all_tracked
+            for _ in range(max(1, SUB // 8)):
+                qualify = real & gate & (low | (since >= cfg.kf_max_interval))
+                any_q = prev_any & torch.any(qualify)
+                pa = torch.argmax(qualify.to(torch.int32))   # first true
+                promote_ats.append(torch.where(any_q, si + pa, -1).to(f32))
+                sel = pa.reshape(1)
+                kp_p = kp_sub.map(lambda a: a.index_select(0, sel)[0])
+                metas.append(torch.stack([
+                    kp_p.x, kp_p.y, kp_p.octave.to(f32),
+                    kp_p.valid.to(f32)]).reshape(-1))
+                uv_b = self._uv_of(kp_p)
+                payload = self._kf_track(
+                    True, slot_noise[slot], out_s.index_select(0, sel)[0, :6],
+                    ref["pose"], ref["desc"], ref["valid"], ref["lms"],
+                    ref["has"], ref["uv"], kp_p.desc, kp_p.valid, uv_b)
+                payload = torch.where(any_q, payload, 0.0)
+                payloads.append(payload)
+                desc_out.extend([kp_p.desc, kp_p.valid])
+                slot += 1
+                # The next slot and sub-chunk track against the latest
+                # promoted frame.
+                lms_p, has_p = self._promo_lm_table(payload, ref["lms"],
+                                                    ref["has"], N)
+                new_ref = dict(pose=payload[8 * M:8 * M + 6],
+                               desc=kp_p.desc, valid=kp_p.valid, lms=lms_p,
+                               has=has_p, uv=uv_b)
+                ref = {k: torch.where(any_q, new_ref[k], ref[k]) for k in ref}
+                since = torch.where(any_q, iota - pa, since)
+                gate = iota > pa
+                prev_any = any_q
+                any_promo = any_promo | any_q
+            since_last = since[SUB - 1]
+            si += SUB
+        packed = torch.cat([torch.cat(outs).reshape(-1),
+                            torch.stack(promote_ats)] + payloads + metas)
+        return (packed,) + tuple(desc_out)
 
     def _reloc_probe(self, noise: Noise, desc_bank, desc_q,
                      packed) -> torch.Tensor:
@@ -548,11 +795,18 @@ class SfmPipeline:
         `pose` (6,), `tracked` (bool), `is_keyframe` (bool).
 
         `depth` (optional): metric depth that resolves the monocular scale
-        gauge — an (H, W) map (RGB-D) or an (N,) per-keypoint array."""
-        if right is not None:
-            raise NotImplementedError("right= (stereo) is not ported")
+        gauge — an (H, W) map (RGB-D) or an (N,) per-keypoint array.
+        `right` (optional): the rectified right stereo frame; needs
+        `stereo_baseline` at construction. Its per-keypoint depths come
+        from stereo matching (`matching/stereo.py`)."""
+        if right is not None and self.stereo_baseline is None:
+            raise ValueError("pass stereo_baseline= to SfmPipeline for "
+                             "stereo input")
         self._frame_idx += 1
         kp_dev = self._extract(self._frame_to_device(gray))
+        if right is not None:
+            depth = _read(self._stereo(
+                kp_dev, self._extract(self._frame_to_device(right))))
         if self.state == "bootstrap":
             kp = _np_kp(kp_dev, self.cfg.sift.subpixel)
             out = (self._bootstrap_rgbd(kp, depth) if depth is not None
@@ -631,25 +885,72 @@ class SfmPipeline:
                          batch: int = 8):
         """Process a frame sequence with batched extraction: the frontend
         runs over `batch`-frame chunks (one batched call each) and feeds
-        the per-frame tracking logic from the chunk's keypoint tensors.
+        the tracking logic from the chunk's keypoint tensors; with
+        `chunked_tracking`, a chunk in the tracking state is tracked by one
+        stage (`_process_chunk_tracked`), else frame by frame. With
+        `extract_ahead`, the next chunk's extraction starts after this
+        chunk's tracking read (or before its per-frame loop): a reordering
+        of independent work that changes no result.
 
         frames: sequence of (H, W) arrays (equal shapes).
         depths: optional matching sequence of depth maps.
+        rights: optional matching sequence of rectified right frames
+            (needs `stereo_baseline`, and every right frame): both sides
+            are extracted batched and the chunk's per-keypoint depths come
+            from one stereo call and one read.
         Returns the list of per-frame result dicts."""
         if self.frontend is not None:
             raise ValueError("process_sequence uses the built-in extractor")
         if rights is not None:
-            raise NotImplementedError("rights= (stereo) is not ported")
+            if depths is not None:
+                raise ValueError("pass rights= or depths=, not both")
+            if self.stereo_baseline is None:
+                raise ValueError("pass stereo_baseline= to SfmPipeline for "
+                                 "stereo input")
+            if any(r is None for r in rights):
+                raise ValueError("stereo batching needs every right frame; "
+                                 "feed a sequence with missing right frames "
+                                 "to process_frame")
         cfg = self.cfg
         results = []
         n = len(frames)
+        kp_next = None          # the next chunk's keypoints, extracted ahead
         for start in range(0, n, batch):
             chunk = frames[start:start + batch]
-            kp_batch = self._extract_batch(self._chunk_to_device(chunk, batch))
+            stereo_z = None
+            if rights is not None:
+                kp_batch = self._extract_batch(
+                    self._chunk_to_device(chunk, batch))
+                kp_r = self._extract_batch(self._chunk_to_device(
+                    rights[start:start + batch], batch))
+                stereo_z = _read(self._stereo_batch(kp_batch, kp_r))
+            else:
+                kp_batch = kp_next if kp_next is not None else \
+                    self._extract_batch(self._chunk_to_device(chunk, batch))
+            kp_next = None
+
+            def extract_ahead(start=start):
+                # Idempotent: the chunk path calls it after its read, and
+                # its fall-back path calls it again.
+                nonlocal kp_next
+                if cfg.extract_ahead and rights is None and \
+                        kp_next is None and start + batch < n:
+                    kp_next = self._extract_batch(self._chunk_to_device(
+                        frames[start + batch:start + 2 * batch], batch))
+
+            if cfg.chunked_tracking and depths is None and rights is None \
+                    and self.state == "tracking" and cfg.use_local_map \
+                    and self._process_chunk_tracked(
+                        kp_batch, len(chunk), results,
+                        after_read=extract_ahead):
+                continue            # the whole chunk in one stage
+            extract_ahead()
             for bi in range(len(chunk)):
                 kp_i = kp_batch.map(lambda a, bi=bi: a[bi])
                 self._frame_idx += 1
                 depth = depths[start + bi] if depths is not None else None
+                if stereo_z is not None:
+                    depth = stereo_z[bi]          # (N,) per-keypoint depths
                 if self.state == "bootstrap":
                     kp = _np_kp(kp_i, cfg.sift.subpixel)
                     out = (self._bootstrap_rgbd(kp, depth)
@@ -661,6 +962,134 @@ class SfmPipeline:
                 results.append(out)
         self.finalize()
         return results
+
+    def _process_chunk_tracked(self, kp_batch: Keypoints, n_frames: int,
+                               results: List[Dict], after_read=None) -> bool:
+        """Track one extraction chunk on the device (`chunked_tracking`):
+        one upload, one stage (`_track_chunk_promo`) and one packed read
+        cover every frame and the chunk's promotions, whose frames the
+        stage selects with the host's policy. `after_read` is called just
+        after the read. Returns False, having recorded nothing, to fall
+        back to the per-frame path: no local map yet, no guided-matchable
+        last keyframe, or a frame that lost tracking."""
+        cfg = self.cfg
+        local = self._build_local_map()
+        if local is None:
+            return False
+        desc_ref, _, lm_ids, valid_ref = local
+        lms_ref = self.landmarks[np.clip(lm_ids, 0,
+                                         max(self.landmarks.shape[0] - 1, 0))]
+        # Constant-velocity seed from the trajectory (host math).
+        tracked_recs = [r for r in self.trajectory if r.get("tracked")]
+        pose0 = (np.asarray(tracked_recs[-1]["pose"], np.float32)
+                 if tracked_recs else self.keyframes[-1].pose)
+        vel0 = (self._rel_pose(np.asarray(tracked_recs[-2]["pose"],
+                                          np.float32), pose0)
+                if len(tracked_recs) >= 2 else np.zeros(6, np.float32))
+        # The last keyframe's tables for the promotion slots.
+        ref_kf = self.keyframes[-1]
+        has = ref_kf.kp_lm >= 0
+        if not (cfg.guided_radius > 0 and has.any()):
+            return False
+        lms_a = self.landmarks[np.clip(ref_kf.kp_lm, 0,
+                                       self.landmarks.shape[0] - 1)]
+        uv_a = np.stack([ref_kf.kp["u"], ref_kf.kp["v"]], -1)
+
+        B, N = kp_batch.x.shape
+        M = cfg.match.max_matches
+        P = max(1, B // 8)
+        pose_t, vel_t, lms_t, pose_kf_t, lms_a_t, has_t, uv_a_t = \
+            self._upload_many(pose0, np.asarray(vel0, np.float32),
+                              lms_ref.astype(np.float32), ref_kf.pose,
+                              lms_a.astype(np.float32), has,
+                              uv_a.astype(np.float32))
+        chunk_args = (self._next_key(), pose_t, vel_t, self._frames_since_kf,
+                      n_frames, desc_ref, valid_ref, lms_t, kp_batch,
+                      pose_kf_t, ref_kf.kp["desc"], ref_kf.kp["valid_t"],
+                      lms_a_t, has_t, uv_a_t)
+        if self._capture is not None:
+            self._capture["chunk"] = (self._track_chunk_promo, chunk_args)
+        res = self._track_chunk_promo(*chunk_args)
+        # A solve deferred by the previous chunk's promotion starts now,
+        # behind this chunk's stage.
+        self._kickoff_ba()
+        arr = _read(res[0])                          # the chunk's one read
+        if after_read is not None:
+            after_read()
+        per_frame = arr[:B * 8].reshape(B, 8)[:n_frames]
+        n_inls = per_frame[:, 6].astype(np.int32)
+        if not (n_inls >= cfg.keyframe_min_inliers // 2).all():
+            return False            # a lost frame: the per-frame path
+        promote_ats = arr[B * 8:B * 8 + P].astype(np.int32)
+        pay0 = B * 8 + P
+        meta0 = pay0 + P * (8 * M + 8)
+        self.chunk_stats["chunks"] += 1
+        self._chunk_seq += 1
+        if cfg.track_saturation:
+            # Extraction capacity audit (one more read a chunk): nonzero
+            # means the keypoint capacity cut detections.
+            self.chunk_stats["extract_dropped"] = (
+                self.chunk_stats.get("extract_dropped", 0)
+                + int(_read(kp_batch.n_dropped).sum()))
+            if kp_batch.n_cand_pruned is not None:
+                self.chunk_stats["extract_cand_pruned"] = (
+                    self.chunk_stats.get("extract_cand_pruned", 0)
+                    + int(_read(kp_batch.n_cand_pruned).sum()))
+
+        promote_of = {int(pa): pi for pi, pa in enumerate(promote_ats)
+                      if pa >= 0}
+        for bi in range(n_frames):
+            self._frame_idx += 1
+            out = dict(pose=per_frame[bi, :6].astype(np.float32),
+                       tracked=True, is_keyframe=False,
+                       n_inliers=int(n_inls[bi]),
+                       rmse=float(per_frame[bi, 7]), state=self.state)
+            if bi in promote_of:
+                pi = promote_of[bi]
+                payload = arr[pay0 + pi * (8 * M + 8):
+                              pay0 + (pi + 1) * (8 * M + 8)]
+                meta = arr[meta0 + pi * 4 * N:
+                           meta0 + (pi + 1) * 4 * N].reshape(4, N)
+                kp = self._kp_from_meta(meta, res[1 + 2 * pi],
+                                        res[2 + 2 * pi])
+                # Slot 0 matched the last keyframe; a later slot the
+                # previous promoted frame, now the last keyframe.
+                ref_i = ref_kf if pi == 0 else self.keyframes[-1]
+                pose, inliers, sel, m, lm_of_match, tri = \
+                    self._decode_kf_payload(payload, ref_i)
+                # A later promotion of this chunk re-solves this keyframe
+                # in its window BA moments later: skip this one's.
+                later = any(pa > bi for pa in promote_ats if pa >= 0)
+                self._promote_keyframe(kp, pose, m, inliers, sel,
+                                       lm_of_match, tri, ref_kf=ref_i,
+                                       defer_ba=cfg.ba_defer_kickoff,
+                                       ba_seq=self._chunk_seq,
+                                       skip_ba=later)
+                self.chunk_stats["fused_promotions"] += 1
+                self._frames_since_kf = 0
+                out["pose"] = self.keyframes[-1].pose
+                out["is_keyframe"] = True
+            else:
+                self._frames_since_kf += 1
+            self._record(out)
+            results.append(out)
+        self._frames_lost = 0
+        return True
+
+    def _kp_from_meta(self, meta: np.ndarray, desc_dev: torch.Tensor,
+                      valid_dev: torch.Tensor) -> Dict:
+        """Host keypoint dict from the packed (4, N) [x, y, octave, valid]
+        block (the mapping of `_np_kp`); descriptors and validity stay on
+        the device."""
+        octave = meta[2].astype(np.int32)
+        d = dict(x=meta[0], y=meta[1], valid=meta[3] > 0.5, octave=octave,
+                 desc=desc_dev, valid_t=valid_dev)
+        factor = np.exp2(octave.astype(np.float64))
+        if self.cfg.sift.subpixel:
+            factor = factor / 2.0
+        d["u"] = (d["x"] * factor).astype(np.float64)
+        d["v"] = (d["y"] * factor).astype(np.float64)
+        return d
 
     def _decode_kf_payload(self, packed: np.ndarray, ref_kf: Keyframe):
         """Decode a `_kf_track` buffer on the host."""
@@ -685,7 +1114,9 @@ class SfmPipeline:
         """Serialize the SLAM state (keyframes, landmarks, pose graph,
         counters) to one .npz with the JAX package's array names; the
         generator's state takes the place of its `prng_key`. Every
-        keyframe's descriptors come down in one read."""
+        keyframe's descriptors come down in one read. Pending window-BA
+        results are applied first."""
+        self._flush_ba()
         descs = _read(torch.stack([kf.kp["desc"] for kf in self.keyframes])) \
             if self.keyframes else []
         arrays = dict(
@@ -750,6 +1181,9 @@ class SfmPipeline:
             self.keyframes.append(kf)
         self._map_version += 1
         self._local_map_cache = None
+        # Pending solves belong to the map before the load.
+        self._pending_ba = []
+        self._ba_kickoff = None
         self._global_index = None
         for i, kf in enumerate(self.keyframes):
             self._index_keyframe(i, kf)
@@ -1148,11 +1582,21 @@ class SfmPipeline:
     def _promote_keyframe(self, kp, pose, m, inliers, sel, lm_of_match,
                           tri: np.ndarray,
                           depth: Optional[np.ndarray] = None,
-                          ref_kf: Optional[Keyframe] = None):
+                          ref_kf: Optional[Keyframe] = None,
+                          defer_ba: bool = False,
+                          ba_seq: Optional[int] = None,
+                          skip_ba: bool = False):
         """`ref_kf`: the keyframe the match `m` was computed against
         (defaults to the last keyframe; relocalization passes its hit).
         `tri`: (M, 4) [X | good] per match slot from the fused `_kf_track`
-        stage, triangulated against the accepted pose."""
+        stage, triangulated against the accepted pose.
+        `defer_ba`: record the window BA for `_kickoff_ba` (the chunk
+        path starts it after the next chunk's stage) instead of running
+        it here. `ba_seq`: the promoting chunk's sequence number; only
+        older pending solves are applied first (None, the per-frame path:
+        all of them). `skip_ba`: no window BA (a later promotion of the
+        same chunk solves a window that holds this keyframe)."""
+        self._flush_ba(before_seq=ba_seq)
         kf_prev = ref_kf if ref_kf is not None else self.keyframes[-1]
         valid = np.asarray(m.valid)
         ia, ib = np.asarray(m.idx_a), np.asarray(m.idx_b)
@@ -1202,7 +1646,10 @@ class SfmPipeline:
         if self.cfg.compact_interval_kf and \
                 (new_idx + 1) % self.cfg.compact_interval_kf == 0:
             self.compact_landmarks()
-        self._run_window_ba(fix_first_n=2)
+        if defer_ba and not skip_ba:
+            self._ba_kickoff = dict(fix_first_n=2)
+        elif not skip_ba:
+            self._run_window_ba(fix_first_n=2)
         if self.logger is not None:
             self.logger.log("keyframe", frame=self._frame_idx,
                             n_keyframes=len(self.keyframes),
@@ -1377,7 +1824,9 @@ class SfmPipeline:
         """Optimize every keyframe pose over the edge set, padded to the
         graph's static capacities (skipped when they are exceeded), node 0
         fixed as the gauge; then re-anchor each landmark by its creating
-        keyframe's correction. One upload, one stage, one packed read."""
+        keyframe's correction. One upload, one stage, one packed read.
+        Pending window-BA results are applied first."""
+        self._flush_ba()
         cfg = self.cfg
         N = cfg.max_pose_graph_nodes
         E = cfg.max_pose_graph_edges
@@ -1452,6 +1901,7 @@ class SfmPipeline:
         if mesh is not None:
             raise NotImplementedError(
                 "run_global_ba(mesh=...) (dist/ba_dist.py) is not ported")
+        self._flush_ba()
         C = len(self.keyframes)
         if C < 2:
             return dict(rmse=0.0, n_obs=0, n_cams=C, n_lms=0)
@@ -1518,7 +1968,9 @@ class SfmPipeline:
         surviving consecutive pairs, loop edges keep their measurement with
         remapped endpoints, `lm_ref_kf` re-anchors each landmark to the
         nearest surviving keyframe at or before its creator, and the global
-        descriptor index is rebuilt."""
+        descriptor index is rebuilt. Pending window-BA results are applied
+        first."""
+        self._flush_ba()
         n_kf = len(self.keyframes)
         window_start = max(0, n_kf - self.cfg.window_size)
         if window_start <= 1:
@@ -1589,7 +2041,9 @@ class SfmPipeline:
         slots and renumber the rest (landmark array, `lm_ref_kf`, every
         keyframe's `kp_lm`). `min_refs=1` is result-neutral: the dropped
         rows (duplicates left behind by loop fusion) are unreachable from
-        any keyframe."""
+        any keyframe. Pending window-BA results are applied first (their
+        landmark ids are of the space before compaction)."""
+        self._flush_ba()
         n = self.landmarks.shape[0]
         refs = np.zeros(n, np.int64)
         for kf in self.keyframes:
@@ -1677,13 +2131,29 @@ class SfmPipeline:
 
         ba_fn = (self._window_ba_track if self.state == "tracking"
                  else self._window_ba)
-        packed = _read(ba_fn(*self._upload_many(
-            poses, lms, obs_cam, obs_lm, obs_uv, obs_valid, fixed)))
-        self._apply_ba_result(packed, window, uniq, L, O)
+        ba_args = tuple(self._upload_many(poses, lms, obs_cam, obs_lm,
+                                          obs_uv, obs_valid, fixed))
+        if self._capture is not None:
+            self._capture["ba"] = (ba_fn, ba_args)
+        packed = ba_fn(*ba_args)
+        if cfg.ba_async:
+            # Applied later (`_flush_ba`); tracking in between runs against
+            # the pre-BA map. The copy to the host starts now, behind the
+            # solve.
+            self._pending_ba.append((_AsyncRead(packed), list(window), uniq,
+                                     L, O, self._chunk_seq))
+            # At most two in flight: an older one has had a chunk of device
+            # time, so applying it costs little.
+            while len(self._pending_ba) > 2:
+                self._apply_ba_result(*self._pending_ba.pop(0)[:5])
+            return
+        self._apply_ba_result(_read(packed), window, uniq, L, O)
 
-    def _apply_ba_result(self, packed: np.ndarray, window, uniq, L, O):
+    def _apply_ba_result(self, packed, window, uniq, L, O):
         """`packed`: the BA stage's single buffer [poses | landmarks | rmse
-        | iters]."""
+        | iters], read, or an `_AsyncRead` of it to wait for."""
+        if isinstance(packed, _AsyncRead):
+            packed = packed.wait()
         C = self.cfg.window_size
         # The landmark capacity is bucketed per solve; recover it from the
         # buffer layout [poses C*6 | lms Lcap*3 | rmse | iters].
@@ -1697,6 +2167,23 @@ class SfmPipeline:
             self.logger.log("window_ba", rmse=float(packed[-2]),
                             iters=int(packed[-1]), n_obs=O, n_lms=L)
 
+    def _kickoff_ba(self):
+        """Run a deferred window BA, if one is recorded."""
+        if self._ba_kickoff is not None:
+            kw, self._ba_kickoff = self._ba_kickoff, None
+            self._run_window_ba(**kw)
+
+    def _flush_ba(self, before_seq: Optional[int] = None):
+        """Apply pending window-BA results in solve order, after starting a
+        deferred one. `before_seq`: only the solves of chunks before that
+        one (a chunk's second promotion does not wait for its first's
+        solve); None applies all."""
+        self._kickoff_ba()
+        while self._pending_ba and (
+                before_seq is None or self._pending_ba[0][5] < before_seq):
+            self._apply_ba_result(*self._pending_ba.pop(0)[:5])
+
     def finalize(self):
-        """Call at sequence end. The port runs every window BA
-        synchronously, so nothing is deferred."""
+        """Apply deferred work (asynchronous window BA). Call at sequence
+        end."""
+        self._flush_ba()

@@ -22,7 +22,6 @@ from sift_tpu.matching.global_index import \
 from sift_tpu.utils import metrics as jmetrics
 
 from sift_tpu_torch import cli
-from sift_tpu_torch.config import PipelineConfig
 from sift_tpu_torch.eval import ate
 from sift_tpu_torch.io import datasets, trajectory
 from sift_tpu_torch.matching.global_index import GlobalDescriptorIndex
@@ -227,19 +226,7 @@ def test_global_index_add_is_in_place_and_capped():
                                np.full((4, 8), 8 ** -0.5), rtol=4e-3)
 
 
-@pytest.mark.parametrize("kw,name", [
-    ({"chunked_tracking": True}, "chunked_tracking"),
-    ({"ba_async": True}, "ba_async"),
-    ({"ba_defer_kickoff": True}, "ba_defer_kickoff"),
-])
-def test_refused_config_options(kw, name):
-    with pytest.raises(NotImplementedError, match=name):
-        SfmPipeline(INTR, PipelineConfig(**kw), device="cpu")
-
-
-@pytest.mark.parametrize("kw,name", [({"stereo_baseline": 0.54},
-                                      "stereo_baseline"),
-                                     ({"mesh": object()}, "mesh")])
+@pytest.mark.parametrize("kw,name", [({"mesh": object()}, "mesh")])
 def test_refused_constructor_arguments(kw, name):
     with pytest.raises(NotImplementedError, match=name):
         SfmPipeline(INTR, device="cpu", **kw)
@@ -254,17 +241,7 @@ def test_refused_methods(method):
         getattr(pipe, method)(mesh=object())
 
 
-def test_refused_stereo_frames():
-    pipe = SfmPipeline(INTR, device="cpu")
-    img = np.zeros((48, 64), np.uint8)
-    with pytest.raises(NotImplementedError, match="right"):
-        pipe.process_frame(img, right=img)
-    with pytest.raises(NotImplementedError, match="rights"):
-        pipe.process_sequence([img], rights=[img])
-
-
-@pytest.mark.parametrize("flags", [["--chunked"], ["--ba-async"],
-                                   ["--stereo"], ["--plot", "p.png"]])
+@pytest.mark.parametrize("flags", [["--plot", "p.png"]])
 def test_refused_cli_flags(flags):
     with pytest.raises(NotImplementedError, match=flags[0]):
         cli.main(["sfm", TUM_DIR, "--device", "cpu", *flags])
