@@ -127,10 +127,27 @@ Phases, each fatal on failure:
      se3-aligned ATE (no scale fit) held to the JAX run's (STEREO_JAX_*),
      launches 48/48/48/0, first chunk's kernels against plain; (c)
      `stereo_depths` on that chunk, card against the CPU plain path.
+  13. parity mode and subpixel input: (a) every reference golden
+     (`tests/parity/golden_refsim.npz` x3, `golden_grid.npz` x10, the
+     configs and caps of `tests/parity/test_golden*.py`) through parity
+     `extract` on the card: keypoint sets identical to the golden's and
+     to the CPU plain path's, scales within 1e-4, descriptors within 2e-3
+     (+1e-3 relative against the golden), none dropped; (b) `cli.main(
+     ["extract", <png>, "-r", "1", ...])` in parity mode on a 488x600
+     frame (PARITY_ZOOM) at the caps 20480/2048: rc 0, no warning, a
+     table row and an overlay per keypoint; the card's set equal to the
+     CPU run's, none dropped; the warm extraction's ms, the descriptor
+     scan's ms and kernel launches, the host syncs of the path (printed,
+     no threshold); (c) lowe `extract_batch` with `subpixel=True` on
+     phase 5's B=8 frames (976x1200 inside): launches 4/4/4/0, each
+     kernel held against its plain version (phase 4's criteria) and
+     timed at these shapes, image 0 against the CPU plain path (phase 5's
+     criteria), no host sync under `"warn"`, kf/s.
 Then it prints one `kernels` JSON line (with each kernel's launches on
 the twoview path as `launches_twoview`, on phase 9b's sequence as
 `launches_sfm`, on phase 10a's as `launches_loop`, on phase 11a's as
-`launches_chunked` and on phase 12b's as `launches_stereo`), the card
+`launches_chunked`, on phase 12b's as `launches_stereo` and on phase
+13c's as `launches_subpixel`, with 13c's times as `*_subpixel`), the card
 line, and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
@@ -335,6 +352,21 @@ STEREO_JAX_ATE = 0.0001641923357768493
 # where both accept, the depth within 1e-5 relative (a near-tie of the
 # ratio test can fall either side of f32 rounding).
 STEREO_CPU_AGREE = 0.995
+# Phase 13: parity mode and subpixel input. (a) every reference golden
+# with the configs and caps of tests/parity/test_golden.py and
+# test_golden_grid.py; (b) `cli extract -r 1` at the caps
+# tests/parity/test_viz_golden.py gives a 488x600 photograph (parrot.jpg:
+# 1445 keypoints, none dropped), on a `make_textured` texture of 1/8 the
+# size zoomed 8x, a photograph's density (the full-rate texture has more
+# than 20480 ties-allowed extrema an octave and truncates); (c) lowe with
+# `subpixel` on phase 5's frames: kernels 1-3 on the 976x1200 internal
+# frame.
+GOLDEN_REFSIM = [("s0_sub0", False), ("s1_sub0", False), ("s5_sub1", True)]
+GOLDEN_GRID = ["d4", "d5", "o2", "o5", "s10", "s20", "k12", "real_sub",
+               "real_d4", "d4_o5"]
+GOLDEN_GRID_CAPS = {"real_sub": 4096, "real_d4": 2048, "d4_o5": 2048}
+PARITY_CAPS = (20480, 2048)
+PARITY_ZOOM = 8
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -484,7 +516,9 @@ def hold_syncs(torch, fn, label: str) -> int:
     sites = count_syncs(torch, fn)
     before = SYNCS_BEFORE_REPAIR.get(label)
     print(f"extract_batch host syncs per batch at {label}: {len(sites)} "
-          f"{sorted(set(sites))} (before the repair: {before})", flush=True)
+          f"{sorted(set(sites))}"
+          + (f" (before the repair: {before})" if before is not None else ""),
+          flush=True)
     if sites:
         raise Failed(f"extract_batch syncs the host at {label}: {sites}")
     return len(sites)
@@ -2382,6 +2416,259 @@ def stereo_phase(torch, card: str) -> tuple:
     return launches, errs
 
 
+def golden_cases(SiftConfig) -> list:
+    """(name, image, golden rows, golden descriptors, config) of every
+    reference golden, as the repo's parity tests configure them."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    z = np.load(os.path.join(here, "tests", "parity", "golden_refsim.npz"))
+    for key, sub in GOLDEN_REFSIM:
+        out.append((key, z[f"{key}_img"], z[f"{key}_kp"], z[f"{key}_desc"],
+                    SiftConfig(mode="parity", subpixel=sub,
+                               max_keypoints_per_octave=256,
+                               max_keypoints=1024)))
+    z = np.load(os.path.join(here, "tests", "parity", "golden_grid.npz"))
+    for key in GOLDEN_GRID:
+        sigma, k, octaves, dogs, subpixel = z[f"{key}_params"]
+        cap = GOLDEN_GRID_CAPS.get(key, 1024)
+        out.append((key, z[f"{key}_img"], z[f"{key}_kp"], z[f"{key}_desc"],
+                    SiftConfig(mode="parity", sigma=float(sigma), k=float(k),
+                               octaves=int(octaves), dogs_per_epoch=int(dogs),
+                               subpixel=bool(subpixel),
+                               max_keypoints_per_octave=cap,
+                               max_keypoints=4 * cap)))
+    return out
+
+
+def parity_keys(kp) -> dict:
+    """{(octave, level, x, y): (scale, descriptor)} of the valid slots of
+    one image's numpy `Keypoints`."""
+    return {(int(kp.octave[i]), int(kp.level[i]), int(kp.x[i]),
+             int(kp.y[i])): (float(kp.scale[i]), kp.desc[i])
+            for i in np.flatnonzero(kp.valid)}
+
+
+def hold_sets(label: str, got: dict, want: dict, rtol: float = 0.0):
+    """Identical keypoint sets, scales within 1e-4, descriptors within
+    2e-3 (+ rtol of the value); returns (keypoints, max scale diff, max
+    descriptor diff)."""
+    if set(got) != set(want) or not want:
+        raise Failed(f"{label}: {len(got)} vs {len(want)} keypoints, only "
+                     f"here {sorted(set(got) - set(want))[:4]}, only there "
+                     f"{sorted(set(want) - set(got))[:4]}")
+    ds = max(abs(got[k][0] - want[k][0]) for k in want)
+    dd = max(float(np.abs(got[k][1] - want[k][1]).max()) for k in want)
+    bad = [k for k in want if not np.all(np.abs(got[k][1] - want[k][1])
+                                         <= 2e-3 + rtol * np.abs(want[k][1]))]
+    if ds > 1e-4 or bad:
+        raise Failed(f"{label}: scale diff {ds}, descriptors differ at "
+                     f"{bad[:4]} (max {dd})")
+    return len(want), ds, dd
+
+
+def scan_launches(torch, scan, args) -> int:
+    """CUDA kernels launched by one call of the parity descriptor scan on
+    a copy of its recorded arguments (the scan mutates its maps)."""
+    from torch.profiler import ProfilerActivity, profile
+    kp, maps, *rest = args
+    maps = maps.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan(kp, maps, *rest)
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def parity_phase(torch, card: str) -> tuple:
+    """Phase 13: parity mode and subpixel input. (a) every golden on the
+    card, held to the golden and to the CPU plain path; (b) `cli extract
+    -r 1` at full width in parity mode, against the CPU run, with the
+    extraction's and the scan's ms and the path's host syncs; (c) lowe
+    `extract_batch` with `subpixel` on phase 5's frames: launches, each
+    kernel against its plain version, image 0 against the CPU, no host
+    sync, kf/s. Returns ((c)'s launch counts, {kernel: max abs err}, {kernel:
+    timing at the subpixel shapes})."""
+    import io
+    import tempfile
+    import torch.nn.functional as F
+    from sift_tpu_torch import SiftConfig, cli, extract, extract_batch
+    from sift_tpu_torch.frontend import parity
+    from sift_tpu_torch.io.image import load_image_gray, save_image_gray
+
+    # (a) the goldens
+    t0 = time.perf_counter()
+    cases = golden_cases(SiftConfig)
+    n_kp, worst = 0, [0.0, 0.0, 0.0]
+    for key, img, rows, descs, cfg in cases:
+        card_kp = extract(img, cfg).to_numpy()
+        cpu_kp = extract(img, cfg, device="cpu").to_numpy()
+        if int(card_kp.n_dropped) or int(cpu_kp.n_dropped):
+            raise Failed(f"phase 13a {key}: keypoints dropped")
+        golden = {(int(r[0]), int(r[1]), int(r[2]), int(r[3])): (float(r[4]), d)
+                  for r, d in zip(rows, descs)}
+        n, ds, dd = hold_sets(f"phase 13a {key} card vs golden",
+                              parity_keys(card_kp), golden, rtol=1e-3)
+        _, _, dc = hold_sets(f"phase 13a {key} card vs CPU",
+                             parity_keys(card_kp), parity_keys(cpu_kp))
+        n_kp += n
+        worst = [max(worst[0], ds), max(worst[1], dd), max(worst[2], dc)]
+    print(f"phase 13a: {len(cases)} goldens held on the card: {n_kp} "
+          f"keypoints, sets identical to the goldens and to the CPU runs, "
+          f"scale diff <= {worst[0]:.3g}, descriptor diff <= {worst[1]:.3g} "
+          f"(golden), <= {worst[2]:.3g} (CPU); "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    # (b) parity at full width through the command
+    small = torch.from_numpy(make_textured(HEIGHT // PARITY_ZOOM + 1,
+                                           WIDTH // PARITY_ZOOM + 1))
+    frame = F.interpolate(small[None], size=(HEIGHT, WIDTH), mode="bilinear",
+                          align_corners=True)[0, 0].numpy()
+    cfg = SiftConfig(mode="parity", max_keypoints_per_octave=PARITY_CAPS[0],
+                     max_keypoints=PARITY_CAPS[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "textured.png")
+        save_image_gray(png, frame)
+        gray = load_image_gray(png)
+        out, err = io.StringIO(), io.StringIO()
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                t0 = time.perf_counter()
+                rc = cli.main(["extract", png, "-r", "1", "--time",
+                               "--max-keypoints-per-octave",
+                               str(PARITY_CAPS[0]), "--max-keypoints",
+                               str(PARITY_CAPS[1])])
+                cli_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        text = out.getvalue()
+        for line in text.replace(tmp, "<tmp>").splitlines():
+            print(f"phase 13b cli extract: {line}", flush=True)
+        with open(os.path.join(tmp, "interstpoints.txt")) as fh:
+            n_rows = len(fh.read().splitlines()) - 1
+        overlay = os.path.exists(png + "_orientation.png")
+    n_cli = int(text.split()[0]) if rc == 0 else -1
+    if rc != 0 or err.getvalue().strip() or n_rows != n_cli or not overlay:
+        raise Failed(f"phase 13b cli extract: rc {rc}, {n_rows} rows for "
+                     f"{n_cli} keypoints, overlay {overlay}, stderr "
+                     f"{err.getvalue().strip()!r}")
+    card_kp = extract(gray, cfg).to_numpy()
+    cpu_kp = extract(gray, cfg, device="cpu").to_numpy()
+    if int(card_kp.n_dropped) or int(cpu_kp.n_dropped) or \
+            int(card_kp.valid.sum()) != n_cli:
+        raise Failed(f"phase 13b: n_dropped {card_kp.n_dropped} (card), "
+                     f"{cpu_kp.n_dropped} (CPU), {card_kp.valid.sum()} "
+                     f"valid against the command's {n_cli}")
+    n, ds, dd = hold_sets("phase 13b card vs CPU", parity_keys(card_kp),
+                          parity_keys(cpu_kp))
+
+    reps = 5
+    scans, scan_s, n_ok = [], [], []
+    scan = parity.descriptor_scan_parity
+
+    def timed_scan(*args):
+        if not scans:
+            scans.append((args[0], args[1].clone()) + args[2:])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = scan(*args)
+        torch.cuda.synchronize()
+        scan_s.append(time.perf_counter() - t)
+        n_ok.append(int(res[1].sum()))
+        return res
+
+    extract(gray, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        extract(gray, cfg)
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) / reps * 1e3
+    parity.descriptor_scan_parity = timed_scan
+    try:
+        for _ in range(reps):
+            extract(gray, cfg)
+    finally:
+        parity.descriptor_scan_parity = scan
+    launches_scan = scan_launches(torch, scan, scans[0])
+    sites = count_syncs(torch, lambda: extract(gray, cfg))
+    print(f"phase 13b: {HEIGHT}x{WIDTH}, caps {PARITY_CAPS}: {n} keypoints, "
+          f"none dropped, set identical to the CPU run (scale diff {ds:.3g}, "
+          f"descriptor diff {dd:.3g}); command {cli_s:.3f} s (first run); "
+          f"extraction {whole_ms:.3f} ms warm, descriptor scan "
+          f"{float(np.median(scan_s)) * 1e3:.3f} ms median of {reps} "
+          f"({n_ok[0]} keypoints, {launches_scan} kernel launches); host syncs "
+          f"{len(sites)} {sorted(set(sites))}; card {card}", flush=True)
+
+    # (c) lowe with subpixel on phase 5's frames
+    cfg = SiftConfig(subpixel=True)
+    frames_np = make_frames(BATCH)
+    frames = torch.from_numpy(frames_np).cuda()
+    kp, secs, launches, first, originals = counted_run(
+        torch, lambda: extract_batch(frames, cfg))
+    print(f"phase 13c launches: {launches} ({secs:.3f} s, first run)",
+          flush=True)
+    if launches != EXPECTED_LAUNCHES:
+        raise Failed(f"phase 13c launch counts {launches} != "
+                     f"{EXPECTED_LAUNCHES}")
+    errs = hold_first_chunk(torch, "phase 13c", first, originals)
+    timing = {}
+    plain = extraction_plain()
+    for name, calls in first.items():
+        ms = ms_stream = plain_ms = nbytes = nops = 0.0
+        seen = True
+        for args in calls:
+            ms_stream += event_ms(torch, lambda: originals[name](*args), 20)
+            dev = device_ms(torch, lambda: originals[name](*args), 20,
+                            KERNEL_SYMBOLS[name])
+            seen = seen and dev is not None
+            ms += dev or 0.0
+            plain_ms += event_ms(torch, lambda: plain[name](*args), 3)
+            b, o = work_of(name, args)
+            nbytes, nops = nbytes + b, nops + o
+        bound_ms, bound_by = bound(nbytes, nops)
+        timing[name] = {"ms": ms if seen else ms_stream,
+                        "timing": "cupti" if seen else "events",
+                        "ms_stream": ms_stream, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"phase 13c {name}: {timing[name]['ms']:.4f} ms/batch "
+              f"({timing[name]['timing']}), stream {ms_stream:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+    kpn = kp.to_numpy()
+    n = kpn.valid.sum(axis=1)
+    if (n == 0).any() or not all(
+            np.isfinite(getattr(kpn, f)[kpn.valid]).all()
+            for f in ("x", "y", "scale", "orientation", "desc")):
+        raise Failed(f"phase 13c: valid per image {n.tolist()}, or "
+                     "non-finite fields")
+    cpu = extract_batch(frames_np[:1], cfg, device="cpu").to_numpy()
+    fwd, worst_fwd = match_keypoints(cpu, kpn, 0)
+    back, worst_back = match_keypoints(kpn, cpu, 0)
+    worst_desc = max(worst_fwd, worst_back)
+    print(f"phase 13c image 0 vs CPU plain path: {int(cpu.valid[0].sum())} "
+          f"vs {int(n[0])} valid, matched {fwd:.4f} / {back:.4f}, max desc "
+          f"diff {worst_desc:.3g}; valid per image {n.tolist()}", flush=True)
+    if min(fwd, back) < 0.99 or worst_desc > 2e-3:
+        raise Failed("phase 13c: card and CPU plain path disagree")
+    hold_syncs(torch, lambda: extract_batch(frames, cfg),
+               f"subpixel {2 * HEIGHT}x{2 * WIDTH}")
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        extract_batch(frames, cfg)
+    torch.cuda.synchronize()
+    batch_s = (time.perf_counter() - t0) / reps
+    print(f"phase 13c extract_batch subpixel B={BATCH} {HEIGHT}x{WIDTH} "
+          f"(internal {2 * HEIGHT}x{2 * WIDTH}): {batch_s * 1e3:.3f} ms/batch, "
+          f"{BATCH / batch_s:.2f} kf/s; card {card}", flush=True)
+    return launches, errs, timing
+
+
 def finish(torch, card: str) -> int:
     """Print the card line and, as the last line, the result."""
     print(f"card: {card}", flush=True)
@@ -2596,6 +2883,7 @@ def main() -> int:
         loop_launches, loop_err = loop_phase(torch, card)
         chunked_launches, chunked_err = chunked_phase(torch, card)
         stereo_launches, stereo_err = stereo_phase(torch, card)
+        sub_launches, sub_err, sub_timing = parity_phase(torch, card)
     except Failed as e:
         return fail(str(e))
     size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
@@ -2609,6 +2897,10 @@ def main() -> int:
         r["max_abs_err_chunked"] = chunked_err[r["name"]]
         r["launches_stereo"] = stereo_launches[r["name"]]
         r["max_abs_err_stereo"] = stereo_err[r["name"]]
+        r["launches_subpixel"] = sub_launches[r["name"]]
+        r["max_abs_err_subpixel"] = sub_err[r["name"]]
+        r.update({f"{k}_subpixel": v
+                  for k, v in sub_timing[r["name"]].items()})
         r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
         if r["name"] in at_size:
             t = at_size[r["name"]]
@@ -2624,6 +2916,7 @@ def main() -> int:
     row["launches_loop"] = loop_launches["streaming_top2"]
     row["launches_chunked"] = chunked_launches["streaming_top2"]
     row["launches_stereo"] = stereo_launches["streaming_top2"]
+    row["launches_subpixel"] = sub_launches["streaming_top2"]
     rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)

@@ -1,18 +1,25 @@
 """Command line of the PyTorch port (counterpart of `sift_tpu/cli.py`,
-`match`, `twoview` and `sfm` subcommands).
+`extract`, `match`, `twoview` and `sfm` subcommands).
 
+    python -m sift_tpu_torch.cli img.png [-r 1] [--device cuda|cpu]
+    python -m sift_tpu_torch.cli extract img.png [--mode parity|lowe] [-r 1]
     python -m sift_tpu_torch.cli match a.png b.png [--device cuda|cpu]
     python -m sift_tpu_torch.cli twoview a.png b.png [--fx F --fy F
         --cx C --cy C] [--device cuda|cpu]
     python -m sift_tpu_torch.cli sfm <sequence> [--format tum|kitti]
         [--traj out.txt] [--device cuda|cpu]
 
-`match` extracts both images (lowe mode), matches their descriptors (ratio
-test, mutual), and verifies the matches with homography RANSAC. `twoview`
-extracts and matches the same way, normalizes the matched pixels by the
-intrinsics (default: focal = the larger image side, principal point at
-the centre) and estimates the camera-B-from-camera-A pose (5-point
-essential RANSAC, cheirality, Gauss-Newton polish). `sfm` runs the
+`extract` mirrors the reference executable (its flags and defaults,
+parity mode by default; a bare image path means `extract`): it prints the
+keypoint count, writes `<img>_orientation.png` (each keypoint a square of
+side scale*10 at original-image coordinates, rotated by its orientation)
+and with `-r 1` the tab table `interstpoints.txt` in the working
+directory. `match` extracts both images (lowe mode), matches their
+descriptors (ratio test, mutual), and verifies the matches with homography
+RANSAC. `twoview` extracts and matches the same way, normalizes the
+matched pixels by the intrinsics (default: focal = the larger image side,
+principal point at the centre) and estimates the camera-B-from-camera-A
+pose (5-point essential RANSAC, cheirality, Gauss-Newton polish). `sfm` runs the
 incremental SfM/SLAM loop (`slam/pipeline.py::SfmPipeline`) over a TUM-RGBD
 sequence (RGB-D unless `--no-depth`) or a KITTI odometry sequence
 (monocular, or stereo with `--stereo`) and reports ATE and RPE against
@@ -21,8 +28,8 @@ BA (`--ba-async`), loop closure (`--loop-closure`, `--sim3`), landmark
 compaction (`--compact-every`) and a final full-map BA (`--global-ba`) on
 request. Each takes the JAX command's flags and prints its output lines;
 `sfm --plot`, whose path is not ported, raises `NotImplementedError`.
-`--device` (default `cuda`) picks where everything
-runs; RANSAC draws from a `torch.Generator` seeded with 0 on that device.
+`--device` (default `cuda`) picks where everything runs; RANSAC draws
+from a `torch.Generator` seeded with 0 on that device.
 """
 
 from __future__ import annotations
@@ -34,10 +41,13 @@ import time
 
 import numpy as np
 
+SUBCOMMANDS = ("extract", "match", "twoview", "sfm")
+
 
 def _add_reference_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("image", nargs="?", help="unused by `match`")
-    p.add_argument("--img", "-i", dest="img", help="unused by `match`")
+    p.add_argument("image", nargs="?", help="input image (`extract`)")
+    p.add_argument("--img", "-i", dest="img",
+                   help="the image on which sift will be executed")
     p.add_argument("--sigma", "-s", type=float, default=1.6,
                    help="sigma of the Gaussian calculations (default 1.6)")
     p.add_argument("--k", "-k", type=float, default=math.sqrt(2.0),
@@ -47,20 +57,23 @@ def _add_reference_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dogsPerEpoch", "-d", dest="dogs_per_epoch", type=int,
                    default=3, help="DoGs per octave (default 3)")
     p.add_argument("--subpixel", "-p", type=int, default=0,
-                   help="start from a 2x-upsampled image (not ported)")
+                   help="start from a 2x-upsampled image (default 0)")
     p.add_argument("--result", "-r", type=int, default=0,
-                   help="unused by `match`")
-    p.add_argument("--mode", choices=("lowe", "parity"), default="lowe",
-                   help="'lowe' only; 'parity' is not ported")
+                   help="dump interest points to interstpoints.txt "
+                        "(`extract`; default 0)")
+    p.add_argument("--mode", choices=("lowe", "parity"), default="parity",
+                   help="'parity' replicates the reference's behaviour; "
+                        "'lowe' is the Lowe-2004 pipeline")
     p.add_argument("--max-keypoints", type=int, default=1024)
     p.add_argument("--max-keypoints-per-octave", type=int, default=None,
                    help="per-octave candidate buffer capacity (default: "
                         "SiftConfig's)")
     p.add_argument("--rootsift", action="store_true",
                    help="RootSIFT descriptors: L1-normalize + sqrt")
-    p.add_argument("--no-viz", action="store_true", help="unused by `match`")
+    p.add_argument("--no-viz", action="store_true",
+                   help="skip writing <img>_orientation.png (`extract`)")
     p.add_argument("--time", action="store_true",
-                   help="print wall-clock timings of the three steps")
+                   help="print wall-clock timings")
     p.add_argument("--pallas", choices=("auto", "on", "off"), default="auto",
                    help="carried for parity with the JAX CLI; 'off' is "
                         "refused on the card")
@@ -90,6 +103,122 @@ def _sync(device: str) -> None:
 
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def viz_geometry(x, y, octave, scale, orientation_deg, subpixel: bool):
+    """Keypoint -> drawn-square geometry, the reference's transform
+    (main.cpp:59-74): centre `loc * 2^octave / (2 if subpixel else 1)`,
+    side `scale * 10`, angle the orientation in degrees. Returns (cx, cy,
+    side, angle_deg) float64 arrays."""
+    div = 2.0 if subpixel else 1.0
+    factor = np.exp2(np.asarray(octave, np.float64)) / div
+    cx = np.asarray(x, np.float64) * factor
+    cy = np.asarray(y, np.float64) * factor
+    side = np.asarray(scale, np.float64) * 10.0
+    return cx, cy, side, np.asarray(orientation_deg, np.float64)
+
+
+def square_corners(x: float, y: float, side: float, angle_deg: float):
+    """The 4 corners of a side x side square centred at (x, y), rotated by
+    `angle_deg` (cv::RotatedRect::points(): degrees, clockwise in image
+    coordinates). Order: top-left, top-right, bottom-right, bottom-left of
+    the unrotated square."""
+    half = 0.5 * float(side)
+    rad = math.radians(float(angle_deg))
+    c, sn = math.cos(rad), math.sin(rad)
+    return [(x + dx * c - dy * sn, y + dx * sn + dy * c)
+            for dx, dy in ((-half, -half), (half, -half),
+                           (half, half), (-half, half))]
+
+
+def draw_keypoints(rgb: np.ndarray, xs, ys, sides, angles_deg,
+                   color=(0, 0, 255)) -> np.ndarray:
+    """Draw each keypoint as a rotated square outline, 1 px wide, on a
+    copy of the (H, W, 3) image."""
+    from PIL import Image, ImageDraw
+
+    im = Image.fromarray(rgb.astype(np.uint8), mode="RGB")
+    drw = ImageDraw.Draw(im)
+    for x, y, s, a in zip(xs, ys, sides, angles_deg):
+        pts = square_corners(float(x), float(y), float(s), float(a))
+        drw.line([pts[0], pts[1], pts[2], pts[3], pts[0]], fill=color, width=1)
+    return np.asarray(im)
+
+
+def _dump_result_file(path: str, kps, descs) -> None:
+    """The reference's result table (main.cpp:78-89), %g floats."""
+    def g(v):
+        return f"{float(v):g}"
+
+    with open(path, "w") as out:
+        out.write("Location\tscale\torientation\tdescriptors\n")
+        for kp, d in zip(kps, descs):
+            desc_str = "".join(g(v) + ", " for v in d)
+            out.write(f"[{g(kp['x'])}, {g(kp['y'])}]\t{g(kp['scale'])}\t"
+                      f"{g(kp['orientation'])}\t[{desc_str}]\n")
+
+
+def cmd_extract(args) -> int:
+    import torch
+
+    from sift_tpu_torch.frontend.sift import extract
+    from sift_tpu_torch.io.image import load_image_gray
+
+    img_file = args.img or args.image
+    if not img_file:
+        print("error: no input image (use positional arg or --img/-i)",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _sift_config(args)
+    gray = load_image_gray(img_file)
+
+    t0 = time.perf_counter()
+    kp = extract(gray, cfg, True, device=args.device).to_numpy()
+    t1 = time.perf_counter()
+
+    valid = kp.valid
+    n = int(valid.sum())
+    print(f"{n} interest points ({img_file}, mode={args.mode})")
+    if kp.n_dropped is not None and int(kp.n_dropped) > 0:
+        print(f"warning: {int(kp.n_dropped)} keypoints "
+              f"exceeded the static buffer capacities and were dropped "
+              f"(weakest-response first). Raise --max-keypoints-per-octave/"
+              f"--max-keypoints; parity-mode output is NOT "
+              f"reference-faithful while this warning prints.",
+              file=sys.stderr)
+    if kp.n_cand_pruned is not None and int(kp.n_cand_pruned) > 0:
+        print(f"note: {int(kp.n_cand_pruned)} raw extrema candidates "
+              f"beyond the per-octave cap were pruned weakest-first before "
+              f"refinement (strongest-N selection, not silent loss).",
+              file=sys.stderr)
+    if args.time:
+        print(f"extract wall time: {t1 - t0:.3f}s (includes the kernel "
+              f"build on the first call)")
+
+    xs, ys, sides, angles = viz_geometry(
+        kp.x[valid], kp.y[valid], kp.octave[valid], kp.scale[valid],
+        kp.orientation[valid], cfg.subpixel)
+    if not args.no_viz:
+        from PIL import Image
+
+        from sift_tpu_torch.io.image import save_image_rgb
+
+        with Image.open(img_file) as im:
+            rgb = np.asarray(im.convert("RGB"))
+        out_png = img_file + "_orientation.png"
+        save_image_rgb(out_png, draw_keypoints(rgb, xs, ys, sides, angles))
+        print(f"wrote {out_png}")
+
+    if args.result:
+        rows = [dict(x=kp.x[valid][i], y=kp.y[valid][i],
+                     scale=kp.scale[valid][i],
+                     orientation=kp.orientation[valid][i]) for i in range(n)]
+        descs = kp.desc[valid] if kp.desc is not None else np.zeros((n, 128))
+        _dump_result_file("interstpoints.txt", rows, descs)
+        print("wrote interstpoints.txt")
+    return 0
 
 
 def cmd_match(args) -> int:
@@ -343,9 +472,16 @@ def cmd_sfm(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     top = argparse.ArgumentParser(
         prog="sift-tpu-torch",
-        description="PyTorch/CUDA port of sift-tpu (match, twoview and sfm "
-                    "subcommands)")
+        description="PyTorch/CUDA port of sift-tpu (reference-compatible "
+                    "extract, match, twoview and sfm subcommands)")
     sub = top.add_subparsers(dest="command")
+    pe = sub.add_parser("extract",
+                        help="extract SIFT keypoints (reference-compatible)")
+    pe.add_argument("--device", default="cuda",
+                    help="where to run: cuda (default) or cpu")
+    _add_reference_flags(pe)
+    pe.set_defaults(func=cmd_extract)
+
     pm = sub.add_parser("match", help="extract + match two images")
     pm.add_argument("image_a")
     pm.add_argument("image_b")
@@ -359,7 +495,10 @@ def build_parser() -> argparse.ArgumentParser:
     pm.add_argument("--device", default="cuda",
                     help="where to run: cuda (default) or cpu")
     _add_reference_flags(pm)
-    pm.set_defaults(func=cmd_match)
+    # Parity descriptors cannot discriminate (every histogram's mass is in
+    # bin 0), so the matching commands default to lowe; `extract` keeps
+    # the reference executable's parity default.
+    pm.set_defaults(func=cmd_match, mode="lowe")
 
     pt = sub.add_parser("twoview", help="relative pose between two frames")
     pt.add_argument("image_a")
@@ -374,7 +513,7 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--device", default="cuda",
                     help="where to run: cuda (default) or cpu")
     _add_reference_flags(pt)
-    pt.set_defaults(func=cmd_twoview)
+    pt.set_defaults(func=cmd_twoview, mode="lowe")
 
     ps = sub.add_parser("sfm", help="incremental SfM over a sequence")
     ps.add_argument("path", help="sequence directory (TUM) or dataset root "
@@ -424,7 +563,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # Reference compatibility: arguments without a subcommand (a bare
+    # image path, or --img) mean `extract`, as the reference binary.
+    if not argv or (argv[0] not in SUBCOMMANDS
+                    and argv[0] not in ("-h", "--help")):
+        argv = ["extract"] + argv
+    args = build_parser().parse_args(argv)
     if not hasattr(args, "func"):
         build_parser().print_help()
         return 1

@@ -22,9 +22,9 @@ class SiftConfig:
     k: float = math.sqrt(2.0)     # scale step
     octaves: int = 4
     dogs_per_epoch: int = 3       # DoGs per octave
-    subpixel: bool = False        # 2x upsample input first (not in the port yet)
+    subpixel: bool = False        # 2x upsample input first
 
-    # "lowe" = Lowe-2004 pipeline; "parity" = reference quirks (not ported).
+    # "lowe" = Lowe-2004 pipeline; "parity" = reference quirks.
     mode: str = "lowe"
 
     # Static-shape budget: octave o keeps max_keypoints_per_octave >> o
@@ -49,7 +49,8 @@ class SiftConfig:
     pallas: str = "auto"
     # Gradient maps are cast to this type before the window gather.
     window_dtype: str = "bfloat16"
-    # Only "exact" is ported ("approx" was a TPU partial sort).
+    # Only "exact" is ported ("approx" was a TPU partial sort; parity
+    # mode is exact either way).
     extrema_topk: str = "exact"
 
     def __post_init__(self):
@@ -126,11 +127,8 @@ class BAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Top-level SLAM/SfM pipeline configuration. The port runs the
-    default path; `SfmPipeline` refuses, with `NotImplementedError`, the
-    options it does not port (`enable_loop_closure`, `pose_graph_sim3`,
-    `chunked_tracking`, `ba_async`, `ba_defer_kickoff`,
-    `compact_interval_kf > 0`)."""
+    """Top-level SLAM/SfM pipeline configuration (every field is honoured
+    on one device; meshes are not ported)."""
 
     sift: SiftConfig = SiftConfig()
     match: MatchConfig = MatchConfig()
@@ -156,15 +154,13 @@ class PipelineConfig:
     tracking_ransac_hypotheses: int = 8
     tracking_gn_iters: int = 8
 
-    # Deferred window BA (not ported).
+    # Deferred (asynchronous) window BA.
     ba_async: bool = False
-    # Device-resident chunked tracking (not ported).
+    # Device-resident chunked tracking.
     chunked_tracking: bool = False
-    # Extraction of the next chunk before the current chunk's read; the
-    # port has no separate read to hide, so this is carried for field
-    # parity only.
+    # Extraction of the next chunk right after the current chunk's read.
     extract_ahead: bool = True
-    # Deferred window-BA kickoff of the chunked tracker (not ported).
+    # Deferred window-BA kickoff of the chunked tracker.
     ba_defer_kickoff: bool = False
 
     # Bootstrap / keyframe policy.

@@ -1,10 +1,17 @@
 """Scale-space extrema detection with a per-octave cap (counterpart of
-`sift_tpu/frontend/extrema.py`, lowe mode, exact selection).
+`sift_tpu/frontend/extrema.py`, exact selection).
 
-Strict 26-neighbour test plus a DoG contrast pre-threshold over the
-interior levels and pixels; candidates are ranked by |DoG| and the
-strongest `cfg.octave_cap(o)` kept. Ties keep the lower flat index first,
-as `lax.top_k` does: a stable descending sort, then a slice.
+lowe: strict 26-neighbour test plus a DoG contrast pre-threshold over the
+interior levels and pixels, ranked by |DoG|, the strongest
+`cfg.octave_cap(o)` kept.
+
+parity: the reference's end-exclusive `subarray(x-1, y-1 -> x+1, y+1)`
+makes each neighbourhood the 2x2 up-left quadrant ending at the pixel, on
+the three levels, and the test allows ties; candidates are ranked by
+|DoG - 128| and the flat `cfg.max_keypoints_per_octave` kept.
+
+Ties keep the lower flat index first, as `lax.top_k` does: a stable
+descending sort, then a slice.
 """
 
 from __future__ import annotations
@@ -15,17 +22,21 @@ import torch.nn.functional as F
 from sift_tpu_torch.config import SiftConfig
 
 
-def _window_extreme(x: torch.Tensor, is_max: bool) -> torch.Tensor:
-    """3x3 windowed max/min of a (..., H, W) map (outside reads -/+inf)."""
+def _window_extreme(x: torch.Tensor, is_max: bool,
+                    quadrant: bool = False) -> torch.Tensor:
+    """Windowed max/min of a (..., H, W) map (outside reads -/+inf): the
+    3x3 window centred on the pixel, or with `quadrant` the 2x2 window
+    ending at it."""
     op = torch.maximum if is_max else torch.minimum
     init = float("-inf") if is_max else float("inf")
     xp = F.pad(x, (1, 1, 1, 1), value=init)
     h, w = x.shape[-2], x.shape[-1]
+    offs = [(0, 0), (0, 1), (1, 0), (1, 1)] if quadrant else \
+        [(dy, dx) for dy in range(3) for dx in range(3)]
     out = None
-    for dy in range(3):
-        for dx in range(3):
-            s = xp[..., dy:dy + h, dx:dx + w]
-            out = s if out is None else op(out, s)
+    for dy, dx in offs:
+        s = xp[..., dy:dy + h, dx:dx + w]
+        out = s if out is None else op(out, s)
     return out
 
 
@@ -37,16 +48,15 @@ def top_k_stable(x: torch.Tensor, k: int):
 
 def detect_extrema_octave(dogs: torch.Tensor, cfg: SiftConfig, octave: int = 0):
     """dogs: (B, L, H, W). Returns (x, y, level, score, valid), each (B, K)
-    with K = cfg.octave_cap(octave), and n_pruned (B,) int32: candidates
-    beyond the cap."""
-    if cfg.mode != "lowe":
-        raise NotImplementedError("parity mode is not ported")
-    if cfg.extrema_topk != "exact":
+    with K = cfg.octave_cap(octave) (parity: cfg.max_keypoints_per_octave),
+    and n_pruned (B,) int32: candidates beyond the cap."""
+    parity = cfg.mode == "parity"
+    if not parity and cfg.extrema_topk != "exact":
         raise NotImplementedError('extrema_topk="approx" is not ported')
     B, L, H, W = dogs.shape
-    K = cfg.octave_cap(octave)
-    wmax = _window_extreme(dogs, is_max=True)
-    wmin = _window_extreme(dogs, is_max=False)
+    K = cfg.max_keypoints_per_octave if parity else cfg.octave_cap(octave)
+    wmax = _window_extreme(dogs, is_max=True, quadrant=parity)
+    wmin = _window_extreme(dogs, is_max=False, quadrant=parity)
     interior = torch.zeros((H, W), dtype=torch.bool, device=dogs.device)
     interior[1:-1, 1:-1] = True
     thresh = 0.5 * cfg.contrast_threshold * cfg.image_max / max(L - 2, 1)
@@ -54,14 +64,22 @@ def detect_extrema_octave(dogs: torch.Tensor, cfg: SiftConfig, octave: int = 0):
     masks, scores = [], []
     for i in range(1, L - 1):
         c = dogs[:, i]
-        # own 3x3 window includes the centre: "max <= centre" is the
-        # non-strict own-level test; adjacent levels are strict.
-        is_max = ((wmax[:, i] <= c) & (wmax[:, i - 1] < c)
-                  & (wmax[:, i + 1] < c) & (c > thresh))
-        is_min = ((wmin[:, i] >= c) & (wmin[:, i - 1] > c)
-                  & (wmin[:, i + 1] > c) & (c < -thresh))
+        if parity:
+            # the centre lies in its own quadrant: ties allowed throughout
+            is_max = ((wmax[:, i] <= c) & (wmax[:, i - 1] <= c)
+                      & (wmax[:, i + 1] <= c))
+            is_min = ((wmin[:, i] >= c) & (wmin[:, i - 1] >= c)
+                      & (wmin[:, i + 1] >= c))
+            scores.append((c - 128.0).abs())
+        else:
+            # own 3x3 window includes the centre: "max <= centre" is the
+            # non-strict own-level test; adjacent levels are strict.
+            is_max = ((wmax[:, i] <= c) & (wmax[:, i - 1] < c)
+                      & (wmax[:, i + 1] < c) & (c > thresh))
+            is_min = ((wmin[:, i] >= c) & (wmin[:, i - 1] > c)
+                      & (wmin[:, i + 1] > c) & (c < -thresh))
+            scores.append(c.abs())
         masks.append((is_max | is_min) & interior)
-        scores.append(c.abs())
 
     mask = torch.stack(masks, dim=1)                          # (B, L-2, H, W)
     flat_score = torch.where(mask, torch.stack(scores, dim=1),

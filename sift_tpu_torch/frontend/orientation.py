@@ -1,12 +1,61 @@
-"""Orientation histogram smoothing and peak selection (counterpart of
-`sift_tpu/frontend/orientation.py`, lowe mode)."""
+"""Orientation assignment (counterpart of `sift_tpu/frontend/orientation.py`).
+
+lowe: histogram smoothing and peak selection for the window stages.
+
+parity (the reference's `_orientationAssignment`, `_findNearestGaussian`):
+the parabola vertex is always NaN, so every orientation is NaN and no
+keypoint is duplicated. What remains is the nearest-Gaussian lookup, the
+first argmin over all recorded sigmas in octave-major order (a keypoint's
+coordinates stay in its own octave's frame), and the `>=`-form bounds test
+in that Gaussian's frame.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from sift_tpu_torch.frontend.extrema import top_k_stable
 from sift_tpu_torch.kernels.histogram import parabola_vertex
+from sift_tpu_torch.utils.device import constant
+
+R = 8  # parity window radius: 16x16 windows, the reference's `region`
+
+
+def nearest_gaussian_index(scale: torch.Tensor, gauss_sigmas: np.ndarray):
+    """(octave, level) of the first recorded sigma nearest `scale`; a
+    difference of 100 or more never wins (the reference's initial
+    `lowest_diff`)."""
+    flat = constant(gauss_sigmas.reshape(-1), scale.device)
+    diffs = (flat - scale[..., None]).abs()
+    diffs = torch.where(diffs < 100.0, diffs, float("inf"))
+    idx = torch.argmin(diffs, dim=-1)        # first occurrence wins
+    n_levels = gauss_sigmas.shape[1]
+    return idx // n_levels, idx % n_levels
+
+
+def parity_bounds_ok(x, y, widths, heights):
+    """`>=`-form bounds test of a 16x16 window."""
+    return (x >= R) & (x < widths - R) & (y >= R) & (y < heights - R)
+
+
+def assign_orientation_parity(kp: dict, gauss_sigmas: np.ndarray,
+                              shapes: np.ndarray) -> dict:
+    """kp: flat keypoint buffers; shapes: (O, 2) numpy (H_o, W_o). Returns
+    kp with `gauss_o`, `gauss_l`, a NaN `orientation` and bounds-filtered
+    `valid`."""
+    go, gl = nearest_gaussian_index(kp["scale"], gauss_sigmas)
+    dev = kp["scale"].device
+    hs = constant(shapes[:, 0], dev, torch.int32)[go]
+    ws = constant(shapes[:, 1], dev, torch.int32)[go]
+    ok = parity_bounds_ok(kp["x"].to(torch.int32), kp["y"].to(torch.int32),
+                          ws, hs)
+    out = dict(kp)
+    out["gauss_o"] = go.to(torch.int32)
+    out["gauss_l"] = gl.to(torch.int32)
+    out["valid"] = kp["valid"] & ok
+    out["orientation"] = torch.full_like(kp["scale"], float("nan"))
+    return out
 
 
 def _circular_smooth(hist: torch.Tensor, passes: int = 1) -> torch.Tensor:

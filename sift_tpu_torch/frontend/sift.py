@@ -1,12 +1,15 @@
 """SIFT extraction entry points of the PyTorch port (counterpart of
-`sift_tpu/frontend/sift.py`, lowe mode).
+`sift_tpu/frontend/sift.py`).
 
 `extract_batch(imgs)`: (B, H, W) -> `Keypoints` with a leading B.
 `extract(img)`: one (H, W) image through the batched path at B=1.
+Parity mode runs `frontend/parity.py::extract_parity` image by image; it
+reaches no hand kernel.
 
-Both run on the card unless the caller passes `device="cpu"`. On the card
-every per-keypoint stage launches its hand kernel (window gather, refine
-walk, descriptor); on the CPU the same stages run their plain versions.
+Both run on the card unless the caller passes `device="cpu"`. In lowe
+mode, on the card, every per-keypoint stage launches its hand kernel
+(window gather, refine walk, descriptor); on the CPU the same stages run
+their plain versions.
 The dense stages (pyramid, extrema) keep the batch axis; the per-keypoint
 stages run on keypoints flattened across the batch, indexing a (2, B*L,
 H, W) gradient stack with fused (image, level) indices.
@@ -19,6 +22,7 @@ import torch
 
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.frontend.extrema import detect_extrema_octave, top_k_stable
+from sift_tpu_torch.frontend.parity import extract_parity
 from sift_tpu_torch.frontend.pyramid import build_pyramid
 from sift_tpu_torch.frontend.refine import refine_octave_lowe
 from sift_tpu_torch.frontend.windows import (
@@ -58,11 +62,8 @@ def _resolve_device(device, cfg: SiftConfig) -> torch.device:
 
 
 def _check_config(cfg: SiftConfig) -> None:
-    if cfg.mode != "lowe":
-        raise NotImplementedError('mode="parity" is not ported')
-    if cfg.subpixel:
-        raise NotImplementedError("subpixel=True is not ported")
-    if cfg.extrema_topk != "exact":
+    # Parity selection is always exact, as in JAX.
+    if cfg.mode == "lowe" and cfg.extrema_topk != "exact":
         raise NotImplementedError('extrema_topk="approx" is not ported')
 
 
@@ -172,13 +173,20 @@ def extract_batch(imgs, cfg: SiftConfig = SiftConfig(),
     imgs = imgs.to(device=dev, dtype=torch.float32).contiguous()
     if imgs.dim() != 3:
         raise ValueError(f"expected (B, H, W) images, got {tuple(imgs.shape)}")
+    if cfg.mode == "parity":
+        kps = [extract_parity(im, cfg) for im in imgs]
+        return Keypoints(**{
+            f: (None if getattr(kps[0], f) is None
+                else torch.stack([getattr(k, f) for k in kps]))
+            for f in Keypoints.__dataclass_fields__})
     return extract_lowe_batched(imgs, cfg, with_descriptors)
 
 
 def extract(img, cfg: SiftConfig = SiftConfig(), with_descriptors: bool = True,
             device="cuda") -> Keypoints:
     """Extract SIFT keypoints from one (H, W) image through the batched
-    path at B=1."""
+    path at B=1. Parity mode always computes descriptors (they decide
+    validity), as in JAX."""
     if isinstance(img, np.ndarray):
         img = torch.from_numpy(img)
     kp = extract_batch(img[None], cfg, with_descriptors, device)

@@ -1,8 +1,12 @@
-"""Scale-space gradient and Hessian of (..., 3, 3, 3) DoG cubes [s, y, x].
+"""Scale-space gradient and Hessian of (..., 3, 3, 3) DoG cubes [s, y, x]
+(counterpart of `sift_tpu/kernels/derivatives.py`).
 
-Lowe-mode central differences (counterpart of the non-parity branch of
-`sift_tpu/kernels/derivatives.py`). The operation order is kept term for
-term: the refinement walk must take the same steps as the JAX package.
+Lowe mode takes central differences. Parity mode keeps the reference's
+three quirks (`alg::foDerivative` / `soDerivative`): the gradient is
+sign-flipped, the cross terms are divided by 2 instead of 4, and `dys`
+keeps only its lower-level pair (the upper pair cancels itself). The
+operation order is kept term for term: the refinement walk must take the
+same steps as the JAX package.
 """
 
 from __future__ import annotations
@@ -10,20 +14,29 @@ from __future__ import annotations
 import torch
 
 
-def scale_space_gradient_hessian(p: torch.Tensor):
+def scale_space_gradient_hessian(p: torch.Tensor, parity: bool = False):
     """Returns (grad (..., 3), hess (..., 3, 3)), component order (x, y, s)."""
     c = p[..., 1, 1, 1]
-    dx = (p[..., 1, 1, 2] - p[..., 1, 1, 0]) / 2.0
-    dy = (p[..., 1, 2, 1] - p[..., 1, 0, 1]) / 2.0
-    ds = (p[..., 2, 1, 1] - p[..., 0, 1, 1]) / 2.0
+    if parity:
+        dx = (p[..., 1, 1, 0] - p[..., 1, 1, 2]) / 2.0
+        dy = (p[..., 1, 0, 1] - p[..., 1, 2, 1]) / 2.0
+        ds = (p[..., 0, 1, 1] - p[..., 2, 1, 1]) / 2.0
+    else:
+        dx = (p[..., 1, 1, 2] - p[..., 1, 1, 0]) / 2.0
+        dy = (p[..., 1, 2, 1] - p[..., 1, 0, 1]) / 2.0
+        ds = (p[..., 2, 1, 1] - p[..., 0, 1, 1]) / 2.0
     grad = torch.stack([dx, dy, ds], dim=-1)
 
     dxx = p[..., 1, 1, 2] + p[..., 1, 1, 0] - 2.0 * c
     dyy = p[..., 1, 2, 1] + p[..., 1, 0, 1] - 2.0 * c
     dss = p[..., 2, 1, 1] + p[..., 0, 1, 1] - 2.0 * c
-    dxy = (p[..., 1, 2, 2] - p[..., 1, 2, 0] - p[..., 1, 0, 2] + p[..., 1, 0, 0]) / 4.0
-    dxs = (p[..., 2, 1, 2] - p[..., 2, 1, 0] - p[..., 0, 1, 2] + p[..., 0, 1, 0]) / 4.0
-    dys = (p[..., 2, 2, 1] - p[..., 2, 0, 1] - p[..., 0, 2, 1] + p[..., 0, 0, 1]) / 4.0
+    cross_div = 2.0 if parity else 4.0
+    dxy = (p[..., 1, 2, 2] - p[..., 1, 2, 0] - p[..., 1, 0, 2] + p[..., 1, 0, 0]) / cross_div
+    dxs = (p[..., 2, 1, 2] - p[..., 2, 1, 0] - p[..., 0, 1, 2] + p[..., 0, 1, 0]) / cross_div
+    if parity:
+        dys = (p[..., 0, 0, 1] - p[..., 0, 2, 1]) / 2.0
+    else:
+        dys = (p[..., 2, 2, 1] - p[..., 2, 0, 1] - p[..., 0, 2, 1] + p[..., 0, 0, 1]) / 4.0
 
     row0 = torch.stack([dxx, dxy, dxs], dim=-1)
     row1 = torch.stack([dxy, dyy, dys], dim=-1)

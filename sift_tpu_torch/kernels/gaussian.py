@@ -4,7 +4,8 @@ Vigra `initGaussian(sigma)` semantics: a sampled Gaussian of radius
 round(3*sigma), normalized to unit sum, applied in X then Y with mirror
 (edge-not-repeated) borders. Up to `_MATMUL_MAX_DIM` the blur is two f32
 matrix products with the mirror border folded into a banded operator;
-above it, an explicit shifted-add stencil over a mirror-padded copy.
+above it, and wherever the result must round alike on every device, an
+explicit shifted-add stencil over a mirror-padded copy.
 
 The JAX package runs these products at `Precision.HIGHEST`, so the port
 refuses to run them in TF32 on the card.
@@ -92,16 +93,25 @@ def _stencil_1d(img: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
 
 
 def gaussian_blur(img: torch.Tensor, sigma: float,
-                  radius: int | None = None) -> torch.Tensor:
-    """Separable Gaussian blur of a (..., H, W) float32 stack."""
-    check_f32_matmul(img, "gaussian_blur")
+                  radius: int | None = None,
+                  same_on_every_device: bool = False) -> torch.Tensor:
+    """Separable Gaussian blur of a (..., H, W) float32 stack.
+
+    `same_on_every_device` takes the shifted-add stencil at every size:
+    one elementwise multiply and one add a tap, in tap order, which round
+    alike on the CPU and the card (matrix products do not: cuBLAS and the
+    CPU's BLAS sum in other orders). Parity mode needs it: its
+    ties-allowed extrema and hard thresholds keep or drop a keypoint on
+    the last bit of a DoG value."""
     h, w = img.shape[-2], img.shape[-1]
-    if max(h, w) <= _MATMUL_MAX_DIM:
-        dev = str(img.device)
-        Ah = _blur_matrix_t(h, float(sigma), radius, dev)
-        Aw = _blur_matrix_t(w, float(sigma), radius, dev)
-        out = torch.matmul(img, Aw.T)          # along W first, then H
-        return torch.matmul(Ah, out)
+    if not same_on_every_device:
+        check_f32_matmul(img, "gaussian_blur")
+        if max(h, w) <= _MATMUL_MAX_DIM:
+            dev = str(img.device)
+            Ah = _blur_matrix_t(h, float(sigma), radius, dev)
+            Aw = _blur_matrix_t(w, float(sigma), radius, dev)
+            out = torch.matmul(img, Aw.T)          # along W first, then H
+            return torch.matmul(Ah, out)
     taps = gaussian_kernel_1d(sigma, radius=radius)
     out = _stencil_1d(img, taps, img.dim() - 1)
     return _stencil_1d(out, taps, img.dim() - 2)

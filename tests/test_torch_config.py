@@ -117,6 +117,8 @@ def test_import_pulls_in_no_jax():
             "import sift_tpu_torch.io.datasets, sift_tpu_torch.io.trajectory\n"
             "import sift_tpu_torch.matching.global_index\n"
             "import sift_tpu_torch.utils.metrics\n"
+            "import sift_tpu_torch.frontend.parity, sift_tpu_torch.kernels.resize\n"
+            "import sift_tpu_torch.kernels.gradients\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'sift_tpu')\n"
             "       or m.startswith(('jax.', 'jaxlib', 'flax.', 'sift_tpu.'))]\n"
             "print(repr(bad))\n")
@@ -143,9 +145,40 @@ def test_pallas_off_refused_on_the_card(monkeypatch):
                       SiftConfig(pallas="off"), device="cuda")
 
 
-@pytest.mark.parametrize("kw", [{"mode": "parity"}, {"subpixel": True},
-                                {"extrema_topk": "approx"}])
+@pytest.mark.parametrize("kw", [{"extrema_topk": "approx"}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         extract_batch(np.zeros((1, 32, 32), np.float32), SiftConfig(**kw),
                       device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{"mode": "parity"}, {"subpixel": True},
+                                {"mode": "parity", "subpixel": True}])
+def test_parity_and_subpixel_need_the_card(monkeypatch, kw):
+    """No CPU fall-back: without device="cpu" they run on the card or
+    raise; parity keeps an exact selection under extrema_topk="approx"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((32, 32), np.float32)
+    with pytest.raises(RuntimeError):
+        extract_batch(img[None], SiftConfig(**kw))
+    with pytest.raises(RuntimeError):
+        sift_tpu_torch.extract(img, SiftConfig(**kw))
+    kp = extract_batch(img[None], SiftConfig(**kw), device="cpu")
+    assert kp.valid.device.type == "cpu" and not kp.valid.any()
+    if kw.get("mode") == "parity":
+        kp = sift_tpu_torch.extract(
+            img, SiftConfig(extrema_topk="approx", **kw), device="cpu")
+        assert not kp.valid.any()
+
+
+def test_top_level_exports_match_jax():
+    """Every name of `sift_tpu.__all__` but `MeshConfig` (dist/ is not
+    ported)."""
+    import sift_tpu
+    missing = set(sift_tpu.__all__) - set(sift_tpu_torch.__all__)
+    assert missing == {"MeshConfig"}
+    for name in sift_tpu_torch.__all__:
+        assert hasattr(sift_tpu_torch, name), name
+    from sift_tpu_torch import PipelineConfig as Exported
+    assert Exported is PipelineConfig
+    assert sift_tpu_torch.__version__ == sift_tpu.__version__
