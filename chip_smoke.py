@@ -143,11 +143,43 @@ Phases, each fatal on failure:
      kernel held against its plain version (phase 4's criteria) and
      timed at these shapes, image 0 against the CPU plain path (phase 5's
      criteria), no host sync under `"warn"`, kf/s.
+  14. the feature service (`sift_tpu_torch.serve`): (a) a service built
+     from `python -m sift_tpu_torch.serve`'s parser at its defaults
+     (480x640, lowe, 1024 keypoints, a 2 ms window, batches of 8) behind
+     its HTTP front on 127.0.0.1:0, requests carrying TUM fixture frames
+     as base64 PNG: /healthz, /extract of frame 0 (launches 4/4/4/0; held
+     against the CPU service as sets, phase 5's criteria, descriptors
+     within 2e-3 plus one q8 step), /match of frames 0 and 9 (8/8/8/0),
+     /twoview with freiburg1's intrinsics (8/8/8/0; success, R within 0.1
+     deg and t within 2 deg of the ground truth), /stats; every answer
+     200; the host syncs of each request (two bulk reads an /extract, one
+     a /match; /twoview's printed); 20 single requests' p50/p99; (b) 32
+     /extract from 8 clients at a 50 ms window: at most 16 dispatches, an
+     image identical in every slot; six images co-batched against a
+     window-0 service (valid equal, x within 1e-4, descriptors within one
+     q8 step; bit equality printed); `extract_batch` of a frame at B=1
+     against B=8 (printed: why the service extracts at one batch size);
+     requests/s, mean batch, /stats phases and a profiled co-batched
+     dispatch's busy share; (c) a
+     service at 2400x3200 and 8192 keypoints matches phase 6's pair
+     (launches 8/8/8/2; median transfer error under 1 px), and every
+     kernel call recorded in (a) and (c) is held against its plain
+     version; (d) one /extract of a `--mode parity` service, the CPU
+     service's keypoints exactly; (e) `cli match --match-impl ivf` on
+     phase 6's pair; with the same init noise, the IVF matches of the card
+     and the CPU agree on 99%; with nprobe = n_clusters they are the exact
+     matcher's (phase 6's near-tie criteria); build and search ms beside
+     the exact matchers'; (f) `ransac_homography` and `fit_homography` on
+     every phase-10a bootstrap attempt's points and on (e)'s pair, card
+     against the CPU: H within HOMOGRAPHY_RTOL, inlier sets equal; (g)
+     phase 8's window-BA state through `save_checkpoint` and
+     `restore_checkpoint(target=)` onto the card, bit-identical.
 Then it prints one `kernels` JSON line (with each kernel's launches on
 the twoview path as `launches_twoview`, on phase 9b's sequence as
 `launches_sfm`, on phase 10a's as `launches_loop`, on phase 11a's as
 `launches_chunked`, on phase 12b's as `launches_stereo` and on phase
-13c's as `launches_subpixel`, with 13c's times as `*_subpixel`), the card
+13c's as `launches_subpixel`, with 13c's times as `*_subpixel`, and on
+phase 14a's three requests and 14c's match as `launches_serve`), the card
 line, and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
@@ -157,6 +189,9 @@ CUDA card or no `sift_tpu_torch` beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
+import io
 import json
 import os
 import subprocess
@@ -367,6 +402,17 @@ GOLDEN_GRID = ["d4", "d5", "o2", "o5", "s10", "s20", "k12", "real_sub",
 GOLDEN_GRID_CAPS = {"real_sub": 4096, "real_d4": 2048, "d4_o5": 2048}
 PARITY_CAPS = (20480, 2048)
 PARITY_ZOOM = 8
+# Phase 14: the feature service. (a) `python -m sift_tpu_torch.serve`'s
+# defaults (480x640, lowe, 1024 keypoints, a 2 ms window, batches of 8)
+# behind its HTTP front, on the TUM fixture's frames: /extract launches
+# EXPECTED_LAUNCHES, /match and /twoview TWOVIEW_LAUNCHES; (c) a service at
+# phase 6's shape matches phase 6's pair: two B=1 extractions and the
+# streaming top-2 forward and mutual.
+SERVE_LARGE_LAUNCHES = {"gather_windows": 8, "refine_walk": 8,
+                        "descriptor_accumulate": 8, "streaming_top2": 2}
+# (f) `fit_homography` and homography RANSAC, card against the CPU: H to
+# this share of its largest entry, inlier sets equal.
+HOMOGRAPHY_RTOL = 1e-4
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -464,6 +510,18 @@ def warp_homography(img: np.ndarray, Hm: np.ndarray,
     return np.where(inside, v, fill).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=1)
+def match_pair():
+    """Phase 6's 2400x3200 pair (a texture and its warp by
+    `true_homography`) and the homography; made once, read-only."""
+    h, w = MATCH_HEIGHT, MATCH_WIDTH
+    frame_a = make_textured(h, w)[0]
+    H_true = true_homography(h, w)
+    pair = np.stack([frame_a, warp_homography(frame_a, H_true)])
+    pair.setflags(write=False)
+    return pair, H_true
+
+
 def map_points(Hm: np.ndarray, pts: np.ndarray) -> np.ndarray:
     q = np.c_[pts, np.ones(len(pts))] @ np.asarray(Hm, np.float64).T
     return q[:, :2] / q[:, 2:]
@@ -474,12 +532,12 @@ def _run_counted(fn):
     return fn()
 
 
-def count_syncs(torch, fn) -> list:
+def _sync_sites(torch, fn, counted) -> list:
     """Run `fn` under `torch.cuda.set_sync_debug_mode("warn")`; return one
-    "file:line" per host sync made inside it: the innermost frame of the
-    repo's own code on the stack at the sync (the innermost frame of all,
-    where the repo's code is not on the stack). Syncs outside `fn` (the
-    mode switch itself, finalizers) are not counted."""
+    "file:line" per host sync whose warning `counted(frames)` accepts
+    (frames: the issuing thread's stack): the innermost frame of the
+    repo's own code on that stack (the innermost frame of all, where the
+    repo's code is not on the stack)."""
     import traceback
     import warnings
     here = os.path.dirname(os.path.abspath(__file__))
@@ -489,9 +547,7 @@ def count_syncs(torch, fn) -> list:
     def record(message, category, filename, lineno, file=None, line=None):
         frames = [f for f in traceback.extract_stack()[:-1]
                   if f.filename != warnings.__file__]
-        if "synchroniz" not in str(message) or not any(
-                f.name == "_run_counted" and os.path.abspath(f.filename) == me
-                for f in frames):
+        if "synchroniz" not in str(message) or not counted(frames):
             return
         own = [f for f in frames if f.filename.startswith(here + os.sep)
                and os.path.abspath(f.filename) != me]
@@ -503,10 +559,30 @@ def count_syncs(torch, fn) -> list:
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            _run_counted(fn)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sites
+
+
+def count_syncs(torch, fn) -> list:
+    """The host syncs made inside `fn` (`_sync_sites`). Syncs outside `fn`
+    (the mode switch itself, finalizers) are not counted."""
+    me = os.path.abspath(__file__)
+    return _sync_sites(torch, lambda: _run_counted(fn), lambda frames: any(
+        f.name == "_run_counted" and os.path.abspath(f.filename) == me
+        for f in frames))
+
+
+def count_syncs_any_thread(torch, fn) -> list:
+    """The host syncs that threads other than the caller's make while `fn`
+    runs (the service's batcher worker and HTTP handlers); the caller's
+    own, such as the mode switch, are not counted. Nothing else may run on
+    the card meanwhile."""
+    import threading
+    caller = threading.get_ident()
+    return _sync_sites(torch, fn,
+                       lambda frames: threading.get_ident() != caller)
 
 
 def hold_syncs(torch, fn, label: str) -> int:
@@ -996,9 +1072,7 @@ def match_phase(torch, card: str):
 
     h, w = MATCH_HEIGHT, MATCH_WIDTH
     t0 = time.perf_counter()
-    frame_a = make_textured(h, w)[0]
-    H_true = true_homography(h, w)
-    pair_np = np.stack([frame_a, warp_homography(frame_a, H_true)])
+    pair_np, H_true = match_pair()
     pair = torch.from_numpy(pair_np).cuda()
     print(f"phase 6: {h}x{w} pair made in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1169,35 +1243,8 @@ def match_phase(torch, card: str):
 
     # The kernel's Matches against the dense path's, on the same card.
     m_dense = match_descriptors(ka.desc, ka.valid, kb.desc, kb.valid, dense)
-    fwd = top2_masked(ka.desc, ka.valid, kb.desc, kb.valid, dense)
-    back = top2_masked(kb.desc, kb.valid, ka.desc, ka.valid, dense)
-    tol = mk.RTOL * (
-        float(mk.masked_norms(ka.desc, ka.valid)[ka.valid].max())
-        + float(mk.masked_norms(kb.desc, kb.valid)[kb.valid].max()))
-    best, second, idx = fwd
-    r2 = mcfg.ratio * mcfg.ratio
-    back_tie = ((back[1] - back[0]) <= tol) & (back[0] < 1e29)
-    flagged = ka.valid & (best < 1e29) & (
-        ((second - best) <= tol) | ((best - r2 * second).abs() <= 2 * tol)
-        | back_tie[idx.long()])
-    flagged = flagged.cpu().numpy()
-    ours, theirs = row_map(m), row_map(m_dense)
-    differ = sorted(i for i in set(ours) | set(theirs)
-                    if ours.get(i, (None,))[0] != theirs.get(i, (None,))[0])
-    unexplained = [i for i in differ if not flagged[i]]
-    d_err = max([abs(ours[i][1] - theirs[i][1]) for i in ours
-                 if i in theirs and ours[i][0] == theirs[i][0]] or [0.0])
-    print(f"Matches auto (kernel) vs xla (dense): {len(ours)} vs "
-          f"{len(theirs)} matches, {len(differ)} rows differ (all near a tie "
-          f"or the ratio boundary: {not unexplained}), {int(flagged.sum())} "
-          f"such rows in all, max distance diff {d_err:.3g}", flush=True)
-    if unexplained:
-        raise Failed(f"Matches differ on rows {unexplained[:10]} that are not "
-                     "near a tie or the ratio boundary")
-    if len(differ) > 0.001 * ka.desc.shape[0]:
-        raise Failed(f"{len(differ)} rows differ, more than 0.1%")
-    if d_err > tol:
-        raise Failed(f"distances differ by {d_err}")
+    hold_matches_near_ties(torch, "Matches auto (kernel) vs xla (dense)",
+                           ka, kb, mcfg, m, m_dense)
 
     # End to end: pairs/s, extraction and RANSAC alone.
     reps = 5
@@ -1249,6 +1296,45 @@ def match_phase(torch, card: str):
         "extract_ms": 1e3 * extract_s, "match_ms": 1e3 * match_s,
         "ransac_ms": 1e3 * ransac_s, "busy_ms": busy_ms, "wall_ms": wall_ms,
     }
+
+
+def hold_matches_near_ties(torch, label: str, ka, kb, mcfg, m, m_ref):
+    """Two `Matches` of one descriptor pair must differ only on rows near
+    a tie or the ratio boundary of the dense top-2 (within the streaming
+    kernel's RTOL of the norms), on at most 0.1% of the rows, with equal
+    rows' distances within that tolerance."""
+    from sift_tpu_torch.kernels.cuda import match as mk
+    from sift_tpu_torch.matching.matcher import top2_masked
+    dense = mcfg.replace(impl="xla")
+    fwd = top2_masked(ka.desc, ka.valid, kb.desc, kb.valid, dense)
+    back = top2_masked(kb.desc, kb.valid, ka.desc, ka.valid, dense)
+    tol = mk.RTOL * (
+        float(mk.masked_norms(ka.desc, ka.valid)[ka.valid].max())
+        + float(mk.masked_norms(kb.desc, kb.valid)[kb.valid].max()))
+    best, second, idx = fwd
+    r2 = mcfg.ratio * mcfg.ratio
+    back_tie = ((back[1] - back[0]) <= tol) & (back[0] < 1e29)
+    flagged = ka.valid & (best < 1e29) & (
+        ((second - best) <= tol) | ((best - r2 * second).abs() <= 2 * tol)
+        | back_tie[idx.long()])
+    flagged = flagged.cpu().numpy()
+    ours, theirs = row_map(m), row_map(m_ref)
+    differ = sorted(i for i in set(ours) | set(theirs)
+                    if ours.get(i, (None,))[0] != theirs.get(i, (None,))[0])
+    unexplained = [i for i in differ if not flagged[i]]
+    d_err = max([abs(ours[i][1] - theirs[i][1]) for i in ours
+                 if i in theirs and ours[i][0] == theirs[i][0]] or [0.0])
+    print(f"{label}: {len(ours)} vs {len(theirs)} matches, {len(differ)} "
+          f"rows differ (all near a tie or the ratio boundary: "
+          f"{not unexplained}), {int(flagged.sum())} such rows in all, max "
+          f"distance diff {d_err:.3g}", flush=True)
+    if unexplained:
+        raise Failed(f"{label}: Matches differ on rows {unexplained[:10]} "
+                     "that are not near a tie or the ratio boundary")
+    if len(differ) > 0.001 * ka.desc.shape[0]:
+        raise Failed(f"{label}: {len(differ)} rows differ, more than 0.1%")
+    if d_err > tol:
+        raise Failed(f"{label}: distances differ by {d_err}")
 
 
 def tum_relative_pose(here: str):
@@ -1456,7 +1542,8 @@ def ba_case(torch, card: str, label: str, scene: dict, cfg, cpu_iters: int):
         torch, lambda: run_ba(*args, cfg, fixed_d).rmse.item(),
         f"chip_smoke_{label.split()[0]}_ba_profile.txt", card)
     out = {"ms_per_lm_iteration": run_ms / cfg.max_iterations,
-           "run_ms": run_ms, "busy_ms": busy_ms, "wall_ms": wall_ms}
+           "run_ms": run_ms, "busy_ms": busy_ms, "wall_ms": wall_ms,
+           "state": st}
     msg = (f"{run_ms / cfg.max_iterations:.3f} ms per LM iteration; profiled "
            f"run device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall")
     if cfg.solver == "pcg":
@@ -1883,7 +1970,8 @@ def loop_phase(torch, card: str) -> tuple:
     the Sim(3) graph and compaction on, then `run_global_ba`; (b) a forced
     revisit closed through both graphs; (c) both graphs at capacity;
     (d) `save_map` -> `load_map`. Returns (launch counts of (a),
-    {kernel: max abs err on (a)'s first chunk})."""
+    {kernel: max abs err on (a)'s first chunk}, the arguments of every
+    bootstrap attempt's homography RANSAC in (a))."""
     from sift_tpu_torch.config import PipelineConfig
     from sift_tpu_torch.eval.ate import ate_rmse
     from sift_tpu_torch.kernels import cuda as kcuda
@@ -1897,13 +1985,17 @@ def loop_phase(torch, card: str) -> tuple:
                          loop_max_rmse=2.0)
     log = _Events()
     pipe = SfmPipeline(SFM_INTRINSICS, cfg, seed=0, logger=log)
-    with recording(extraction_kernels()) as (recorded, originals):
+    from sift_tpu_torch.slam import pipeline as pipeline_mod
+    targets = dict(extraction_kernels(),
+                   boot_homography=(pipeline_mod, "ransac_homography"))
+    with recording(targets) as (recorded, originals):
         kcuda.reset_launch_counts()
         t0 = time.perf_counter()
         res = pipe.process_sequence(frames, batch=SFM_BATCH)
         torch.cuda.synchronize()
         seq_s = time.perf_counter() - t0
         launches = kcuda.launch_counts()
+        boot_calls = recorded.pop("boot_homography")
         first_chunk = {name: calls[:4] for name, calls in recorded.items()}
         recorded.clear()
     tracked = float(np.mean([r["tracked"] for r in res]))
@@ -2018,7 +2110,7 @@ def loop_phase(torch, card: str) -> tuple:
     os.remove(path)
     if not same:
         raise Failed("save_map -> load_map changed the state")
-    return launches, errs
+    return launches, errs, boot_calls
 
 
 def hold_first_chunk(torch, label: str, first_chunk: dict,
@@ -2669,6 +2761,515 @@ def parity_phase(torch, card: str) -> tuple:
     return launches, errs, timing
 
 
+def serve_request(port: int, path: str, payload=None):
+    """(HTTP status, JSON body, seconds) of one request to the local front."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, json.loads(body), time.perf_counter() - t0
+
+
+def ok_request(port: int, path: str, payload=None):
+    """(JSON body, seconds) of a request that must answer 200."""
+    code, out, secs = serve_request(port, path, payload)
+    if code != 200:
+        raise Failed(f"{path}: HTTP {code}: {str(out)[:300]}")
+    return out, secs
+
+
+@contextlib.contextmanager
+def http_front(service):
+    """The service's HTTP front on an ephemeral localhost port, in a
+    thread; yields the port and shuts the server down after."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    from sift_tpu_torch.serve import make_handler
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield srv.server_address[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=60)
+
+
+def served_share(a: dict, b: dict):
+    """Share of the keypoints of service answer `a` (valid keypoints only,
+    as /extract gives them) with a counterpart in `b` (same octave,
+    position within 0.01 px, orientation within 0.1 deg), and the largest
+    descriptor difference over those pairs."""
+    a = {k: np.asarray(v) for k, v in a.items()}
+    b = {k: np.asarray(v) for k, v in b.items()}
+    matched, worst = 0, 0.0
+    for s in range(len(a["x"])):
+        cand = np.flatnonzero((b["octave"] == a["octave"][s])
+                              & (np.abs(b["x"] - a["x"][s]) < 1e-2)
+                              & (np.abs(b["y"] - a["y"][s]) < 1e-2))
+        dori = np.abs((b["orientation"][cand] - a["orientation"][s]
+                       + 180.0) % 360.0 - 180.0)
+        cand = cand[dori < 0.1]
+        if cand.size:
+            matched += 1
+            worst = max(worst, float(np.abs(
+                b["desc"][cand] - a["desc"][s]).max(axis=1).min()))
+    return matched / max(len(a["x"]), 1), worst
+
+
+def valid_only(kp: dict) -> dict:
+    """A service's `extract` answer as /extract sends it: valid slots."""
+    v = kp["valid"]
+    return {k: val[v] for k, val in kp.items() if k != "valid"}
+
+
+def pct_ms(secs) -> str:
+    a = np.percentile(np.asarray(secs) * 1e3, [50, 99])
+    return f"p50 {a[0]:.3f} ms, p99 {a[1]:.3f} ms"
+
+
+def hold_served_kernels(torch, label: str, calls: dict, originals: dict):
+    """Every recorded kernel call of the service against its plain version
+    (phase 4's and phase 6's criteria; descriptors also over two
+    launches). Returns {kernel: max abs err}."""
+    from sift_tpu_torch.kernels.cuda import descriptor
+    from sift_tpu_torch.kernels.cuda import match as mk
+    plain = dict(extraction_plain(),
+                 streaming_top2=mk.streaming_top2_plain)
+    errs = {}
+    for name, args_list in calls.items():
+        errs[name] = 0.0
+        for args in args_list:
+            got, want = originals[name](*args), plain[name](*args)
+            torch.cuda.synchronize()
+            if name == "streaming_top2":
+                e = top2_check(torch, mk, got, want, args)[0]
+            else:
+                e = hold_extraction_kernel(torch, descriptor.TOLERANCE, name,
+                                           got, want)[0]
+            if name == "descriptor_accumulate" and \
+                    not torch.equal(got, originals[name](*args)):
+                raise Failed(f"{label}: descriptor kernel differs between "
+                             "two launches")
+            errs[name] = max(errs[name], e)
+        print(f"{label} {name}: {len(args_list)} calls held against plain, "
+              f"max_abs_err {errs[name]:.3g}", flush=True)
+    return errs
+
+
+def hold_homography_fit(torch, label: str, noise, pa, pb, valid, cfg):
+    """`ransac_homography` and a `fit_homography` of its inliers on the
+    card against the CPU, same points and noise: returns (largest H
+    difference relative to the largest entry, over the RANSAC model and
+    the refit, and whether the inlier sets are equal)."""
+    from sift_tpu_torch.geometry.homography import (fit_homography,
+                                                    ransac_homography)
+
+    def unit(H):
+        H = H.double().cpu().numpy()
+        return H / H[2, 2]
+
+    est_g = ransac_homography(noise.cuda(), pa.cuda(), pb.cuda(),
+                              valid.cuda(), cfg)
+    est_c = ransac_homography(noise.cpu(), pa.cpu(), pb.cpu(), valid.cpu(),
+                              cfg)
+    same = torch.equal(est_g.inliers.cpu(), est_c.inliers)
+    w = est_c.inliers.to(pa.dtype)
+    fit_g = fit_homography(pa.cuda(), pb.cuda(), w.cuda())
+    fit_c = fit_homography(pa.cpu(), pb.cpu(), w)
+    rel = 0.0
+    for g, c in ((est_g.model, est_c.model), (fit_g, fit_c)):
+        Hg, Hc = unit(g), unit(c)
+        rel = max(rel, float(np.abs(Hg - Hc).max() / np.abs(Hc).max()))
+    print(f"{label}: {int(valid.sum())} points, inliers "
+          f"{int(est_g.num_inliers)} (card) vs {int(est_c.num_inliers)} (CPU), "
+          f"sets equal {same}; H card vs CPU {rel:.3g} relative", flush=True)
+    return rel, same
+
+
+def serve_phase(torch, card: str, window_state, boot_calls) -> tuple:
+    """Phase 14: the feature service on the card. Returns ({kernel:
+    launches of 14a's three requests and 14c's match}, {kernel: max abs
+    err on the service's recorded calls})."""
+    import base64
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from sift_tpu_torch import SiftConfig, cli, extract, extract_batch, serve
+    from sift_tpu_torch.config import MatchConfig, RansacConfig
+    from sift_tpu_torch.geometry.ransac import gumbel
+    from sift_tpu_torch.io.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from sift_tpu_torch.io.image import load_image_gray, save_image_gray
+    from sift_tpu_torch.kernels import cuda as kcuda
+    from sift_tpu_torch.kernels.cuda import match as mk
+    from sift_tpu_torch.matching.ann import build_ivf, match_descriptors_ann
+    from sift_tpu_torch.matching.matcher import (match_descriptors,
+                                                 matched_coords)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rgb = os.path.join(here, TUM_DIR, "rgb")
+    names = sorted(os.listdir(rgb))
+    b64s = []
+    for n in names:
+        with open(os.path.join(rgb, n), "rb") as fh:
+            b64s.append(base64.b64encode(fh.read()).decode())
+    grays = [serve._decode_image(b) for b in b64s]
+    pair = [b64s[names.index(f"{s}.png")] for s in TUM_PAIR]
+    phase_t0 = time.perf_counter()
+    launches_serve = {k: 0 for k in MATCH_LAUNCHES}
+    errs = {}
+
+    # (a) the service at `python -m sift_tpu_torch.serve`'s defaults
+    args = serve.build_parser().parse_args([])
+    svc = serve.service_from_args(args)
+    t0 = time.perf_counter()
+    svc.warmup()
+    print(f"phase 14a: service {args.height}x{args.width}, {args.mode}, "
+          f"{args.max_keypoints} keypoints, window {args.batch_window_ms} ms, "
+          f"batches of {args.max_batch}; warmup {time.perf_counter() - t0:.3f}"
+          f" s", flush=True)
+    cpu_svc = serve.FeatureService(args.height, args.width, sift=svc.sift,
+                                   device="cpu")
+    intr = list(TUM_FR1_INTRINSICS)
+    requests = [
+        ("/extract", {"image": b64s[0]}, EXPECTED_LAUNCHES),
+        ("/match", {"image_a": pair[0], "image_b": pair[1]},
+         TWOVIEW_LAUNCHES),
+        ("/twoview", {"image_a": pair[0], "image_b": pair[1],
+                      "intrinsics": intr}, TWOVIEW_LAUNCHES),
+    ]
+    answers = {}
+    try:
+        with http_front(svc) as port:
+            health, _ = ok_request(port, "/healthz")
+            if health != {"status": "ok", "shape": [args.height, args.width]}:
+                raise Failed(f"phase 14a /healthz: {health}")
+            with recording(extraction_kernels()) as (calls, originals):
+                for path, payload, expected in requests:
+                    kcuda.reset_launch_counts()
+                    answers[path], secs = ok_request(port, path, payload)
+                    torch.cuda.synchronize()
+                    launches = kcuda.launch_counts()
+                    for k in launches:
+                        launches_serve[k] += launches[k]
+                    print(f"phase 14a {path}: {secs * 1e3:.3f} ms (first "
+                          f"request), launches {launches}", flush=True)
+                    if launches != expected:
+                        raise Failed(f"phase 14a {path} launch counts "
+                                     f"{launches} != {expected}")
+                served_calls = {k: list(v) for k, v in calls.items()}
+            syncs = {}
+            for path, payload, _ in requests:
+                syncs[path] = count_syncs_any_thread(
+                    torch, lambda: ok_request(port, path, payload))
+                counts = {k: syncs[path].count(k) for k in set(syncs[path])}
+                print(f"phase 14a {path} host syncs: {len(syncs[path])} "
+                      f"{dict(sorted(counts.items()))}", flush=True)
+            stats, _ = ok_request(port, "/stats")
+            alone = [ok_request(port, "/extract", {"image": b64s[0]})[1]
+                     for _ in range(20)]
+        if len(syncs["/extract"]) != 2 or len(syncs["/match"]) != 1:
+            raise Failed("phase 14a: the read contract is two bulk reads a "
+                         "dispatch and one a /match")
+        print(f"phase 14a /stats: {stats}", flush=True)
+        if set(stats) != {"dispatch_stats", "phases", "mean_batch"}:
+            raise Failed(f"phase 14a /stats keys {sorted(stats)}")
+
+        ext = answers["/extract"]
+        want = valid_only(cpu_svc.extract(grays[0]))
+        fwd, worst_f = served_share(want, ext)
+        back, worst_b = served_share(ext, want)
+        worst = max(worst_f, worst_b)
+        print(f"phase 14a /extract vs the CPU service: {len(want['x'])} vs "
+              f"{ext['n']} keypoints, matched {fwd:.4f} / {back:.4f}, max "
+              f"desc diff {worst:.3g}", flush=True)
+        if min(fwd, back) < 0.99 or worst > 2e-3 + 1.0 / 255.0:
+            raise Failed("phase 14a: /extract disagrees with the CPU service")
+        if answers["/match"]["n"] < 100:
+            raise Failed(f"phase 14a /match: {answers['/match']['n']} matches")
+        tv = answers["/twoview"]
+        R_gt, t_gt = tum_relative_pose(here)
+        r_err = rot_deg(np.asarray(tv["R"]) @ R_gt.T)
+        t_err = dir_deg(tv["t"], t_gt)
+        print(f"phase 14a /twoview: matches {tv['n_matches']}, inliers "
+              f"{tv['num_inliers']}, success {tv['success']}; rotation "
+              f"{r_err:.4f} deg, t {t_err:.4f} deg from the ground truth",
+              flush=True)
+        if not tv["success"] or r_err > 0.1 or t_err > 2.0:
+            raise Failed("phase 14a: /twoview pose off")
+        print(f"phase 14a: single /extract requests {pct_ms(alone)} (20 in a "
+              f"row, one client); card {card}", flush=True)
+
+        # (b) co-batching
+        load = serve.FeatureService(args.height, args.width, sift=svc.sift,
+                                    batch_window_ms=50, max_batch=8)
+        solo = serve.FeatureService(args.height, args.width, sift=svc.sift)
+        try:
+            load.warmup()
+            with http_front(load) as port:
+                body = [{"image": b64s[i % 4]} for i in range(32)]
+                with ThreadPoolExecutor(max_workers=8) as ex:
+                    list(ex.map(lambda p: ok_request(port, "/extract", p),
+                                body[:8]))
+                load.dispatch_stats.update(extract_requests=0,
+                                           extract_dispatches=0)
+                for q in load.phase_stats.values():
+                    q.clear()
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(max_workers=8) as ex:
+                    outs = list(ex.map(
+                        lambda p: ok_request(port, "/extract", p), body))
+                wall = time.perf_counter() - t0
+                st = dict(load.dispatch_stats)
+                stats, _ = ok_request(port, "/stats")
+            for i in range(4, 32):
+                a, b = outs[i][0], outs[i % 4][0]
+                if a["n"] != b["n"] or not np.allclose(a["x"], b["x"],
+                                                       atol=1e-4, rtol=0):
+                    raise Failed(f"phase 14b: request {i} and {i % 4} (one "
+                                 "image) differ")
+            batches = list(load.phase_stats["batch_size"])
+            print(f"phase 14b: 32 /extract from 8 clients at a 50 ms window: "
+                  f"{st}, mean batch {np.mean(batches):.3f}, "
+                  f"{pct_ms([o[1] for o in outs])}, {32 / wall:.3f} "
+                  f"requests/s; /stats phases {stats['phases']}; identical "
+                  f"images identical in every slot; card {card}", flush=True)
+            if st["extract_requests"] != 32 or st["extract_dispatches"] > 16:
+                raise Failed(f"phase 14b: {st}")
+
+            imgs = grays[:6]
+            ref = [solo.extract(g) for g in imgs]
+            load.dispatch_stats.update(extract_requests=0,
+                                       extract_dispatches=0)
+            with ThreadPoolExecutor(max_workers=6) as ex:
+                got = list(ex.map(load.extract, imgs))
+            bitwise = all(np.array_equal(r[k], o[k]) for r, o in zip(ref, got)
+                          for k in r)
+            bad = []
+            for i, (r, o) in enumerate(zip(ref, got)):
+                v = r["valid"]
+                if not (np.array_equal(r["valid"], o["valid"])
+                        and np.allclose(r["x"][v], o["x"][v], atol=1e-4,
+                                        rtol=0)
+                        and np.allclose(r["desc"][v], o["desc"][v],
+                                        atol=1.01 / 255.0, rtol=0)):
+                    bad.append((i, int((r["valid"] != o["valid"]).sum())))
+            print(f"phase 14b co-batched ({load.dispatch_stats}) vs a "
+                  f"window-0 service (one request a dispatch, padded to "
+                  f"B={solo.max_batch}): 6 images, bit-identical {bitwise}, "
+                  f"failing the JAX test's criteria {bad}", flush=True)
+            if bad:
+                raise Failed(f"phase 14b: co-batched and single extraction "
+                             f"differ on (image, slots) {bad}")
+            # Why the service pads: `extract_batch` of one image at B=1
+            # against the same image in a batch of 8.
+            frames8 = torch.from_numpy(np.stack(grays[:8])).cuda()
+            k8 = extract_batch(frames8, svc.sift).to_numpy()
+            same, flips = 0, []
+            for i in range(8):
+                k1 = extract_batch(frames8[i:i + 1], svc.sift).to_numpy()
+                same += all(np.array_equal(getattr(k1, f)[0],
+                                           getattr(k8, f)[i])
+                            for f in ("x", "y", "scale", "orientation",
+                                      "score", "valid", "desc"))
+                flips.append(int((k1.valid[0] != k8.valid[i]).sum()))
+            print(f"phase 14b extract_batch of one frame at B=1 vs in a "
+                  f"batch of 8 (TUM frames 0-7): {same} of 8 bit-identical, "
+                  f"valid slots differing {flips}", flush=True)
+
+            def burst():
+                with ThreadPoolExecutor(max_workers=8) as ex:
+                    list(ex.map(load.extract, grays[:8]))
+                torch.cuda.synchronize()
+
+            busy_ms, wall_ms = profile_busy(torch, burst,
+                                            "chip_smoke_serve_profile.txt",
+                                            card)
+            print(f"phase 14b profiled co-batched dispatch of 8 requests: "
+                  f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+                  f"({100 * busy_ms / wall_ms:.2f}%); card {card}", flush=True)
+        finally:
+            load.close()
+            solo.close()
+    finally:
+        svc.close()
+
+    # (c) kernel 4 through the service, at phase 6's COLMAP shape
+    pair_np, H_true = match_pair()
+    big = serve.FeatureService(
+        MATCH_HEIGHT, MATCH_WIDTH,
+        sift=SiftConfig(max_keypoints=MATCH_FEATURES,
+                        max_keypoints_per_octave=MATCH_FEATURES),
+        match=MatchConfig(ratio=0.8, mutual=True, max_matches=MATCH_FEATURES),
+        max_batch=1)
+    big.warmup()
+    targets = dict(extraction_kernels(), streaming_top2=(mk, "streaming_top2"))
+    with recording(targets) as (calls, originals):
+        kcuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        mm = big.match_images(pair_np[0], pair_np[1])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kcuda.launch_counts()
+        big_calls = {k: list(v) for k, v in calls.items()}
+    for k in launches:
+        launches_serve[k] += launches[k]
+    v = mm["valid"]
+    err = np.linalg.norm(map_points(H_true, np.c_[mm["xa"][v], mm["ya"][v]])
+                         - np.c_[mm["xb"][v], mm["yb"][v]], axis=1)
+    print(f"phase 14c match_images {MATCH_HEIGHT}x{MATCH_WIDTH}, "
+          f"{MATCH_FEATURES} features: {int(v.sum())} matches, transfer "
+          f"error median {np.median(err):.4f} px, under 1 px "
+          f"{float((err < 1).mean()):.4f}; {secs * 1e3:.3f} ms; launches "
+          f"{launches}", flush=True)
+    if launches != SERVE_LARGE_LAUNCHES:
+        raise Failed(f"phase 14c launch counts {launches} != "
+                     f"{SERVE_LARGE_LAUNCHES}")
+    if v.sum() < MATCH_FEATURES // 8 or not np.median(err) < 1.0:
+        raise Failed("phase 14c: matched coordinates off the homography")
+    for label, recorded in (("phase 14a", served_calls),
+                            ("phase 14c", big_calls)):
+        for k, e in hold_served_kernels(torch, label, recorded,
+                                        originals).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    del served_calls, big_calls
+
+    # (d) parity mode through the service
+    pargs = serve.build_parser().parse_args(["--mode", "parity"])
+    psvc = serve.service_from_args(pargs)
+    try:
+        psvc.warmup()
+        with http_front(psvc) as port:
+            kcuda.reset_launch_counts()
+            got, secs = ok_request(port, "/extract", {"image": b64s[0]})
+            launches = kcuda.launch_counts()
+    finally:
+        psvc.close()
+    want = valid_only(serve.FeatureService(
+        pargs.height, pargs.width, sift=psvc.sift,
+        device="cpu").extract(grays[0]))
+    same = (got["n"] == len(want["x"])
+            and all(np.array_equal(np.asarray(got[k]), want[k])
+                    for k in ("x", "y", "octave")))
+    d_scale = float(np.abs(np.asarray(got["scale"]) - want["scale"]).max()) \
+        if same else float("nan")
+    d_desc = float(np.abs(np.asarray(got["desc"]) - want["desc"]).max()) \
+        if same else float("nan")
+    print(f"phase 14d parity /extract: {got['n']} keypoints (CPU "
+          f"{len(want['x'])}), the same set {same}, scale diff {d_scale:.3g}, "
+          f"descriptor diff {d_desc:.3g}; {secs * 1e3:.3f} ms (batch of "
+          f"{pargs.max_batch}); launches {launches}", flush=True)
+    if not same or d_scale > 1e-4 or d_desc > 2e-3 + 1.0 / 255.0:
+        raise Failed("phase 14d: parity /extract differs from the CPU")
+
+    # (e) IVF through `cli match --match-impl ivf`
+    scfg = SiftConfig(max_keypoints=MATCH_FEATURES,
+                      max_keypoints_per_octave=MATCH_FEATURES,
+                      window_dtype="float32")
+    mcfg = MatchConfig(ratio=0.8)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"{n}.png") for n in ("a", "b")]
+        for p, img in zip(paths, pair_np):
+            save_image_gray(p, img)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["match", *paths, "--match-impl", "ivf", "--time",
+                           "--max-keypoints", str(MATCH_FEATURES),
+                           "--max-keypoints-per-octave", str(MATCH_FEATURES)])
+        for line in out.getvalue().splitlines():
+            print(f"phase 14e cli match --match-impl ivf: {line}", flush=True)
+        if rc != 0 or "success=True" not in out.getvalue():
+            raise Failed(f"phase 14e: cli match --match-impl ivf rc {rc}")
+        grays_ab = [load_image_gray(p) for p in paths]
+    kps = [extract(g, scfg) for g in grays_ab]
+    ann = cli.ivf_config(scfg)
+    u = torch.rand(kps[1].desc.shape[0],
+                   generator=torch.Generator().manual_seed(0))
+    m_card, idx_card = cli.match_ivf(kps, scfg, mcfg, noise=u.cuda())
+    kps_cpu = [k.map(lambda t: t.cpu()) for k in kps]
+    m_cpu, idx_cpu = cli.match_ivf(kps_cpu, scfg, mcfg, noise=u)
+    a, b = row_map(m_card), row_map(m_cpu)
+    agree = sum(a[i][0] == b.get(i, (None,))[0] for i in a) / max(
+        len(a), len(b), 1)
+    print(f"phase 14e IVF ({ann.n_clusters} clusters of capacity "
+          f"{ann.bucket_capacity}, nprobe {ann.nprobe}): n_overflow "
+          f"{int(idx_card.n_overflow)} (card), {int(idx_cpu.n_overflow)} "
+          f"(CPU); {len(a)} matches on the card, {len(b)} on the CPU, "
+          f"{agree:.4f} agree (same init noise)", flush=True)
+    if agree < 0.99:
+        raise Failed("phase 14e: IVF matches on the card and the CPU differ")
+    ann_all = ann.replace(nprobe=ann.n_clusters)
+    index = build_ivf(kps[1].desc, kps[1].valid, ann_all, u.cuda())
+    if int(index.n_overflow):
+        raise Failed(f"phase 14e: {int(index.n_overflow)} points overflow")
+    m_all = match_descriptors_ann(kps[0].desc, kps[0].valid, index, mcfg,
+                                  ann_all)
+    m_exact = match_descriptors(kps[0].desc, kps[0].valid, kps[1].desc,
+                                kps[1].valid, mcfg)
+    hold_matches_near_ties(torch, "phase 14e IVF nprobe = n_clusters vs the "
+                           "exact matcher (streaming kernel)", kps[0], kps[1],
+                           mcfg, m_all, m_exact)
+    build_ms = event_ms(torch, lambda: build_ivf(kps[1].desc, kps[1].valid,
+                                                 ann, u.cuda()), 3)
+    search_ms = event_ms(torch, lambda: match_descriptors_ann(
+        kps[0].desc, kps[0].valid, idx_card, mcfg, ann), 3)
+    args_m = (kps[0].desc, kps[0].valid, kps[1].desc, kps[1].valid)
+    dense_ms = event_ms(torch, lambda: match_descriptors(
+        *args_m, mcfg.replace(impl="xla")), 3)
+    stream_ms = event_ms(torch, lambda: match_descriptors(*args_m, mcfg), 3)
+    print(f"phase 14e {MATCH_FEATURES}x{MATCH_FEATURES}: IVF build "
+          f"{build_ms:.3f} ms, IVF search + ratio + mutual {search_ms:.3f} ms; "
+          f"exact matcher dense {dense_ms:.3f} ms, streaming kernel "
+          f"{stream_ms:.3f} ms (CUDA events); card {card}", flush=True)
+
+    # (f) the homography fit, card against the CPU
+    worst, all_same = 0.0, True
+    for i, (nh, na, nb, valid, cfg_h) in enumerate(boot_calls):
+        rel, same = hold_homography_fit(
+            torch, f"phase 14f phase 10a bootstrap attempt {i}", nh, na, nb,
+            valid, cfg_h)
+        worst, all_same = max(worst, rel), all_same and same
+    m = match_descriptors(kps[0].desc, kps[0].valid, kps[1].desc,
+                          kps[1].valid, MatchConfig(ratio=0.8))
+    pa, pb, valid = matched_coords(kps[0], kps[1], m)
+    noise = gumbel(torch.Generator().manual_seed(0), (512, pa.shape[0]), "cpu")
+    rel, same = hold_homography_fit(torch, "phase 14f cli match's pair", noise,
+                                    pa, pb, valid,
+                                    RansacConfig(inlier_threshold=3.0))
+    worst, all_same = max(worst, rel), all_same and same
+    print(f"phase 14f fit_homography card vs CPU: {len(boot_calls)} bootstrap "
+          f"attempts and cli match's pair, largest H difference {worst:.3g} "
+          f"relative, inlier sets equal {all_same}", flush=True)
+    if not boot_calls or worst > HOMOGRAPHY_RTOL or not all_same:
+        raise Failed("phase 14f: the homography fit parts card from CPU")
+
+    # (g) a window-BA state through a checkpoint, restored onto the card
+    fields = [f.name for f in dataclasses.fields(window_state)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "window_ba.pt")
+        save_checkpoint(path, window_state)
+        target = window_state.replace(**{
+            f: torch.empty_like(getattr(window_state, f)) for f in fields})
+        back = restore_checkpoint(path, target=target)
+    same = all(getattr(back, f).is_cuda and torch.equal(
+        getattr(back, f), getattr(window_state, f)) for f in fields)
+    print(f"phase 14g window-BA state -> save_checkpoint -> "
+          f"restore_checkpoint(target=) on the card: bit-identical {same}",
+          flush=True)
+    if not same:
+        raise Failed("phase 14g: the restored state differs")
+    print(f"phase 14: {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return launches_serve, errs
+
+
 def finish(torch, card: str) -> int:
     """Print the card line and, as the last line, the result."""
     print(f"card: {card}", flush=True)
@@ -2878,12 +3479,14 @@ def main() -> int:
     # 7. the two-view path; 8. bundle adjustment
     try:
         twoview_launches = twoview_phase(torch, card)
-        ba_phase(torch, card)
+        ba = ba_phase(torch, card)
         sfm_launches, sfm_err = sfm_phase(torch, card)
-        loop_launches, loop_err = loop_phase(torch, card)
+        loop_launches, loop_err, boot_calls = loop_phase(torch, card)
         chunked_launches, chunked_err = chunked_phase(torch, card)
         stereo_launches, stereo_err = stereo_phase(torch, card)
         sub_launches, sub_err, sub_timing = parity_phase(torch, card)
+        serve_launches, serve_err = serve_phase(
+            torch, card, ba["window"]["state"], boot_calls)
     except Failed as e:
         return fail(str(e))
     size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
@@ -2899,6 +3502,8 @@ def main() -> int:
         r["max_abs_err_stereo"] = stereo_err[r["name"]]
         r["launches_subpixel"] = sub_launches[r["name"]]
         r["max_abs_err_subpixel"] = sub_err[r["name"]]
+        r["launches_serve"] = serve_launches[r["name"]]
+        r["max_abs_err_serve"] = serve_err[r["name"]]
         r.update({f"{k}_subpixel": v
                   for k, v in sub_timing[r["name"]].items()})
         r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
@@ -2917,6 +3522,8 @@ def main() -> int:
     row["launches_chunked"] = chunked_launches["streaming_top2"]
     row["launches_stereo"] = stereo_launches["streaming_top2"]
     row["launches_subpixel"] = sub_launches["streaming_top2"]
+    row["launches_serve"] = serve_launches["streaming_top2"]
+    row["max_abs_err_serve"] = serve_err["streaming_top2"]
     rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)

@@ -3,7 +3,9 @@ modes (`extract`, `extract_batch`, `cli extract`), two-image matching
 (`matching`, `cli match`), two-view geometry (`geometry`, `cli twoview`),
 bundle adjustment (`ba`), and the single-device SfM/SLAM loop with loop
 closure, the pose graph, chunked tracking, asynchronous window BA and
-stereo (`slam`, `cli sfm`).
+stereo (`slam`, `cli sfm`), the feature service (`serve`), the IVF-Flat
+approximate matcher (`matching.ann`), checkpoints, native decoding and
+debug utilities (`io`, `utils`).
 
 Imports torch and numpy only, never JAX or the `sift_tpu` package. Entry
 points run on the card unless the caller passes `device="cpu"` or CPU

@@ -26,8 +26,9 @@ sequence (RGB-D unless `--no-depth`) or a KITTI odometry sequence
 the ground truth, with chunked tracking (`--chunked`), asynchronous window
 BA (`--ba-async`), loop closure (`--loop-closure`, `--sim3`), landmark
 compaction (`--compact-every`) and a final full-map BA (`--global-ba`) on
-request. Each takes the JAX command's flags and prints its output lines;
-`sfm --plot`, whose path is not ported, raises `NotImplementedError`.
+request, and a trajectory plot with `--plot`. Each takes the JAX
+command's flags and prints its output lines; `match --match-impl ivf`
+matches through the IVF-Flat index (`matching/ann.py`).
 `--device` (default `cuda`) picks where everything runs; RANSAC draws
 from a `torch.Generator` seeded with 0 on that device.
 """
@@ -230,9 +231,6 @@ def cmd_match(args) -> int:
     from sift_tpu_torch.io.image import load_image_gray
     from sift_tpu_torch.matching.matcher import match_descriptors, matched_coords
 
-    if args.match_impl == "ivf":
-        raise NotImplementedError("--match-impl ivf needs matching/ann.py, "
-                                  "which is not ported")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = _sift_config(args)
@@ -243,8 +241,15 @@ def cmd_match(args) -> int:
            for f in (args.image_a, args.image_b)]
     _sync(args.device)
     t1 = time.perf_counter()
-    m = match_descriptors(kps[0].desc, kps[0].valid, kps[1].desc,
-                          kps[1].valid, mcfg)
+    if args.match_impl == "ivf":
+        m, index = match_ivf(kps, cfg, mcfg)
+        n_overflow = int(index.n_overflow)
+        if n_overflow:
+            print(f"warning: IVF bucket overflow dropped {n_overflow} "
+                  "descriptors")
+    else:
+        m = match_descriptors(kps[0].desc, kps[0].valid, kps[1].desc,
+                              kps[1].valid, mcfg)
     n = int(m.count())
     t2 = time.perf_counter()
     print(f"{n} matches (ratio={mcfg.ratio}, mutual={mcfg.mutual})")
@@ -275,6 +280,29 @@ def cmd_match(args) -> int:
         save_image_rgb(args.viz, img)
         print(f"wrote {args.viz}")
     return 0
+
+
+def ivf_config(cfg):
+    """The `match --match-impl ivf` index sizing: clusters of ~32
+    keypoints (4 to 64 of them) and buckets of a quarter of the capacity
+    (at least 128)."""
+    from sift_tpu_torch.config import AnnConfig
+
+    return AnnConfig(n_clusters=min(64, max(4, cfg.max_keypoints // 32)),
+                     bucket_capacity=max(128, cfg.max_keypoints // 4))
+
+
+def match_ivf(kps, cfg, mcfg, noise=None):
+    """`match --match-impl ivf`: index image B's descriptors, probe with
+    A's. `noise` seeds the k-means init (default: a generator seeded with
+    0). Returns (Matches, IvfIndex)."""
+    from sift_tpu_torch.matching.ann import build_ivf, match_descriptors_ann
+
+    ann = ivf_config(cfg)
+    index = build_ivf(kps[1].desc, kps[1].valid, ann, noise)
+    m = match_descriptors_ann(kps[0].desc, kps[0].valid, index,
+                              mcfg.replace(impl="auto"), ann)
+    return m, index
 
 
 def twoview_extract(grays, cfg, device):
@@ -367,8 +395,6 @@ def cmd_sfm(args) -> int:
     from sift_tpu_torch.slam.pipeline import SfmPipeline
     from sift_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.plot:
-        raise NotImplementedError("sfm --plot is not ported")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.format == "tum":
@@ -460,6 +486,11 @@ def cmd_sfm(args) -> int:
         else:
             np.savetxt(args.traj, pipe.positions())
         print(f"wrote {args.traj}")
+    if args.plot:
+        from sift_tpu_torch.io.viz import plot_trajectory
+        plot_trajectory(pipe.positions(), gt, path=args.plot,
+                        title=f"{seq.name} trajectory")
+        print(f"wrote {args.plot}")
     if args.ply:
         from sift_tpu_torch.io.trajectory import save_ply
         lms = pipe.landmarks
@@ -490,7 +521,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default="auto",
                     help="top-2 backend: auto takes the streaming CUDA kernel "
                          "above 4096^2 pairs on the card; xla = dense; pallas "
-                         "= streaming; ivf is not ported")
+                         "= streaming; ivf = the approximate IVF-Flat index "
+                         "over image B")
     pm.add_argument("--viz", help="write side-by-side match visualization")
     pm.add_argument("--device", default="cuda",
                     help="where to run: cuda (default) or cpu")
@@ -545,8 +577,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "one read per extraction batch)")
     ps.add_argument("--ba-async", action="store_true",
                     help="deferred (asynchronous) window BA")
-    # The JAX command's option whose path is not ported: refused.
-    ps.add_argument("--plot", help="not ported")
+    ps.add_argument("--plot", help="write a top-down trajectory plot (PNG)")
     # Loop closure and map maintenance.
     ps.add_argument("--loop-closure", action="store_true",
                     help="enable loop closure + pose-graph optimization")

@@ -1,7 +1,7 @@
 """Configuration of the PyTorch port.
 
-Copies of `sift_tpu.config.SiftConfig`, `MatchConfig`, `RansacConfig`,
-`BAConfig` and `PipelineConfig` (same fields, defaults and checks), kept here so that
+Copies of `sift_tpu.config.SiftConfig`, `MatchConfig`, `AnnConfig`,
+`RansacConfig`, `BAConfig` and `PipelineConfig` (same fields, defaults and checks), kept here so that
 importing the port never imports the JAX package. The system has no learned weights: the
 configuration, and the blur operators and sigma tables derived from it,
 are all that crosses from the JAX package. `config_from_dict` takes
@@ -84,6 +84,26 @@ class MatchConfig:
     impl: str = "auto"
 
     def replace(self, **kw) -> "MatchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class AnnConfig:
+    """IVF-Flat approximate matching (`matching/ann.py`).
+
+    Recall is controlled by `nprobe` (== `n_clusters` degenerates to
+    exact). `bucket_capacity` must hold the largest cluster: size it ~4x
+    the mean occupancy N/n_clusters and check `IvfIndex.n_overflow` == 0.
+    `MatchConfig.impl="auto"` never routes here.
+    """
+
+    n_clusters: int = 256
+    nprobe: int = 8
+    bucket_capacity: int = 512
+    kmeans_iters: int = 10
+    query_tile: int = 256         # search working set = tile x cap x D
+
+    def replace(self, **kw) -> "AnnConfig":
         return dataclasses.replace(self, **kw)
 
 
@@ -218,15 +238,16 @@ class PipelineConfig:
         return dataclasses.replace(self, **kw)
 
 
-_CONFIGS = (SiftConfig, MatchConfig, RansacConfig, BAConfig, PipelineConfig)
+_CONFIGS = (SiftConfig, MatchConfig, AnnConfig, RansacConfig, BAConfig,
+            PipelineConfig)
 _NESTED = {"sift": SiftConfig, "match": MatchConfig, "ransac": RansacConfig,
            "ba": BAConfig}
 
 
 def config_from_dict(d: dict):
     """Build a port config from `dataclasses.asdict` of a JAX-package
-    config: the one of `SiftConfig`, `MatchConfig`, `RansacConfig`,
-    `BAConfig`, `PipelineConfig` whose fields hold every key (their field
+    config: the one of `SiftConfig`, `MatchConfig`, `AnnConfig`,
+    `RansacConfig`, `BAConfig`, `PipelineConfig` whose fields hold every key (their field
     names are disjoint). A `PipelineConfig`'s nested configs may be dicts
     too."""
     for cls in _CONFIGS:

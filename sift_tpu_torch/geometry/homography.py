@@ -56,9 +56,19 @@ def _apply_h(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 def fit_homography(pa: torch.Tensor, pb: torch.Tensor,
                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weighted DLT: H with pb ~ H pa. pa, pb: (..., N, 2); weights:
-    (..., N) or None. Returns (..., 3, 3) with H[2, 2] = 1."""
+    (..., N) or None. Returns (..., 3, 3) with H[2, 2] = 1.
+
+    The fit runs in float64 and returns the input's dtype, as
+    `epipolar.fit_fundamental_8pt` does. The normal matrix A^T A squares
+    the DLT system's conditioning: formed in f32, its smallest eigenvector
+    followed the summation order, and on the bootstrap pairs of a
+    two-plane sequence (430 matches) the RANSAC models of an NVIDIA H100
+    80GB HBM3 (700 W) and of the CPU parted by 1.2e-3 of H's largest
+    entry, with 256 against 263 inliers."""
+    dtype = pa.dtype
+    pa, pb = pa.to(torch.float64), pb.to(torch.float64)
     w = torch.ones(pa.shape[:-1], dtype=pa.dtype, device=pa.device) \
-        if weights is None else weights
+        if weights is None else weights.to(torch.float64)
     Ta = _normalization(pa, w)
     Tb = _normalization(pb, w)
     na = _apply_h(Ta, pa)
@@ -77,7 +87,7 @@ def fit_homography(pa: torch.Tensor, pb: torch.Tensor,
     _, vecs = eigh_or_nan(M)
     Hn = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))   # smallest
     H = solve_or_nan(Tb, Hn @ Ta)               # Tb^-1 Hn Ta
-    return _safe_div(H, H[..., 2:3, 2:3])
+    return _safe_div(H, H[..., 2:3, 2:3]).to(dtype)
 
 
 def symmetric_transfer_error(H: torch.Tensor, pa: torch.Tensor,

@@ -1,9 +1,9 @@
-"""Match visualization, host side (counterpart of
-`sift_tpu/io/viz.py::side_by_side_matches`). PIL is imported inside."""
+"""Host-side plots (counterpart of `sift_tpu/io/viz.py`): matches side by
+side and a top-down trajectory. PIL and matplotlib are imported inside."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -41,3 +41,37 @@ def side_by_side_matches(gray_a: np.ndarray, gray_b: np.ndarray,
         drw.ellipse([x1 - 2, y1 - 2, x1 + 2, y1 + 2], outline=color)
         drw.ellipse([x2 - 2, y2 - 2, x2 + 2, y2 + 2], outline=color)
     return np.asarray(im)
+
+
+def plot_trajectory(est_xyz: np.ndarray,
+                    gt_xyz: Optional[np.ndarray] = None,
+                    path: Optional[str] = None,
+                    title: str = "trajectory",
+                    axes: Sequence[int] = (0, 2)):
+    """Top-down (x-z by default) trajectory plot; returns the figure, or
+    writes `path` and returns None (Agg backend, safe headless)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    a0, a1 = axes
+    fig, ax = plt.subplots(figsize=(6, 6))
+    est = np.asarray(est_xyz)
+    ax.plot(est[:, a0], est[:, a1], "-", color="#2060d0", lw=1.5,
+            label="estimate")
+    ax.plot(est[0, a0], est[0, a1], "o", color="#2060d0", ms=6)
+    if gt_xyz is not None:
+        gt = np.asarray(gt_xyz)
+        ax.plot(gt[:, a0], gt[:, a1], "--", color="#777777", lw=1.2,
+                label="ground truth")
+    ax.set_aspect("equal", adjustable="datalim")
+    ax.set_xlabel("xyz"[a0])
+    ax.set_ylabel("xyz"[a1])
+    ax.set_title(title)
+    ax.legend(loc="best", fontsize=9)
+    ax.grid(alpha=0.3)
+    if path is not None:
+        fig.savefig(path, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+        return None
+    return fig

@@ -1,6 +1,13 @@
-"""Descriptor matching of the PyTorch port (brute force; the IVF index of
-`sift_tpu.matching.ann` is not ported yet)."""
+"""Descriptor matching of the PyTorch port: brute force (`matcher.py`) and
+the IVF-Flat approximate index (`ann.py`)."""
 
+from sift_tpu_torch.matching.ann import (
+    IvfIndex,
+    build_ivf,
+    ivf_index_from_numpy,
+    match_descriptors_ann,
+    search_ivf,
+)
 from sift_tpu_torch.matching.matcher import (
     match_descriptors,
     match_descriptors_guided,
@@ -17,4 +24,9 @@ __all__ = [
     "matched_coords",
     "pairwise_sqdist",
     "top2_masked",
+    "IvfIndex",
+    "build_ivf",
+    "ivf_index_from_numpy",
+    "match_descriptors_ann",
+    "search_ivf",
 ]

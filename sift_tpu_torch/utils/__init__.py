@@ -1,2 +1,3 @@
 """Small helpers of the PyTorch port: device constants, metrics logging
-and profiling (`utils/metrics.py`)."""
+and profiling (`utils/metrics.py`), NaN and determinism checks
+(`utils/debug.py`)."""

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from sift_tpu.config import AnnConfig as JaxAnnConfig
 from sift_tpu.config import MatchConfig as JaxMatchConfig
 from sift_tpu.config import PipelineConfig as JaxPipelineConfig
 from sift_tpu.config import RansacConfig as JaxRansacConfig
@@ -19,8 +20,8 @@ from sift_tpu.kernels.gaussian import blur_matrix as jax_blur_matrix
 from sift_tpu.kernels.gaussian import gaussian_kernel_1d as jax_taps
 
 import sift_tpu_torch
-from sift_tpu_torch.config import (MatchConfig, PipelineConfig, RansacConfig,
-                                   SiftConfig, config_from_dict)
+from sift_tpu_torch.config import (AnnConfig, MatchConfig, PipelineConfig,
+                                   RansacConfig, SiftConfig, config_from_dict)
 from sift_tpu_torch.frontend.pyramid import lowe_sigma_schedule
 from sift_tpu_torch.frontend.sift import extract_batch
 from sift_tpu_torch.kernels.gaussian import blur_matrix, gaussian_kernel_1d
@@ -48,7 +49,8 @@ def test_config_from_dict_round_trips():
 
 
 @pytest.mark.parametrize("ours,theirs", [(MatchConfig, JaxMatchConfig),
-                                         (RansacConfig, JaxRansacConfig)])
+                                         (RansacConfig, JaxRansacConfig),
+                                         (AnnConfig, JaxAnnConfig)])
 def test_match_and_ransac_configs_match_jax(ours, theirs):
     assert ({f.name: f.default for f in dataclasses.fields(ours)}
             == {f.name: f.default for f in dataclasses.fields(theirs)})
@@ -58,6 +60,7 @@ def test_match_and_ransac_configs_match_jax(ours, theirs):
     JaxMatchConfig(ratio=0.7, mutual=False, max_matches=8192, metric="dot",
                    impl="pallas"),
     JaxRansacConfig(num_hypotheses=256, inlier_threshold=3.0, refit=False),
+    JaxAnnConfig(n_clusters=32, nprobe=4, bucket_capacity=256, query_tile=64),
 ])
 def test_config_from_dict_builds_match_and_ransac_configs(jcfg):
     cfg = config_from_dict(dataclasses.asdict(jcfg))
@@ -119,8 +122,13 @@ def test_import_pulls_in_no_jax():
             "import sift_tpu_torch.utils.metrics\n"
             "import sift_tpu_torch.frontend.parity, sift_tpu_torch.kernels.resize\n"
             "import sift_tpu_torch.kernels.gradients\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'sift_tpu')\n"
-            "       or m.startswith(('jax.', 'jaxlib', 'flax.', 'sift_tpu.'))]\n"
+            "import sift_tpu_torch.serve, sift_tpu_torch.matching.ann\n"
+            "import sift_tpu_torch.io.checkpoint, sift_tpu_torch.io.native\n"
+            "import sift_tpu_torch.utils.debug\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'orbax',\n"
+            "                                       'sift_tpu')\n"
+            "       or m.startswith(('jax.', 'jaxlib', 'flax.', 'orbax.',\n"
+            "                        'sift_tpu.'))]\n"
             "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH="")
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,

@@ -138,3 +138,57 @@ def test_ransac_with_a_generator_recovers_h():
     with pytest.raises(ValueError):
         ransac.sample_minimal_sets(torch.zeros((3, 5)), torch.ones(6, dtype=bool),
                                    3, 4)
+
+
+def _near_collinear_sets(seed, count=200):
+    """4-point sets within 2e-3 of a line (what RANSAC draws on a row of
+    features), matched through a near-identity homography with noise."""
+    rng = np.random.default_rng(seed)
+    Ht = np.array([[1.01, 0.02, 0.03], [-0.01, 0.99, 0.01],
+                   [0.02, -0.01, 1.0]])
+    out = []
+    for _ in range(count):
+        d = rng.normal(size=2)
+        d /= np.linalg.norm(d)
+        pa = (rng.uniform(-0.5, 0.5, 2) + rng.uniform(-0.5, 0.5, 4)[:, None]
+              * d + rng.normal(0, 2e-3, (4, 2)))
+        pb = _map(Ht, pa) + rng.normal(0, 1e-3, (4, 2))
+        out.append((pa.astype(np.float32), pb.astype(np.float32)))
+    return out
+
+
+def test_fit_homography_independent_of_summation_order():
+    """The normal matrix is formed in float64, so reordering the points
+    (another summation order, as another device's BLAS takes) moves H by
+    no more than the f32 result's rounding: at most 1e-4 of its largest
+    entry (the card/CPU bound of `chip_smoke.py` phase 14f), even on the
+    ill-conditioned minimal sets where an f32 normal matrix moved it by
+    more than its own size."""
+    worst = 0.0
+    for pa, pb in _near_collinear_sets(0):
+        one = homography.fit_homography(torch.from_numpy(pa),
+                                        torch.from_numpy(pb)).numpy()
+        assert one.dtype == np.float32
+        for p in ([1, 0, 3, 2], [3, 2, 1, 0], [2, 3, 0, 1]):
+            other = homography.fit_homography(torch.from_numpy(pa[p]),
+                                              torch.from_numpy(pb[p])).numpy()
+            worst = max(worst, float(np.abs(other - one).max()
+                                     / np.abs(one).max()))
+    assert worst < 1e-4, worst
+
+
+def test_ransac_homography_independent_of_point_order():
+    """RANSAC on reordered points (the Gumbel columns moved with them)
+    draws the same samples and keeps the same inliers and model."""
+    pa, pb, valid = _correspondences(30, n=400, noise=0.5, outliers=0.4)
+    g = np.random.default_rng(31).gumbel(size=(512, 400)).astype(np.float32)
+    perm = np.random.default_rng(32).permutation(400)
+    cfg = RansacConfig(inlier_threshold=3.0)
+    runs = [homography.ransac_homography(
+        torch.from_numpy(g[:, p]), torch.from_numpy(pa[p]),
+        torch.from_numpy(pb[p]), torch.from_numpy(valid[p]), cfg)
+        for p in (np.arange(400), perm)]
+    np.testing.assert_array_equal(runs[1].inliers.numpy(),
+                                  runs[0].inliers.numpy()[perm])
+    H0, H1 = (r.model.numpy().astype(np.float64) for r in runs)
+    assert np.abs(H1 - H0).max() / np.abs(H0).max() < 1e-6

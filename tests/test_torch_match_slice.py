@@ -200,13 +200,6 @@ def test_cli_match_prints_the_library_counts(tmp_path):
     assert "success=True" in out.stdout
 
 
-def test_cli_refuses_ivf():
-    from sift_tpu_torch import cli
-    with pytest.raises(NotImplementedError):
-        cli.main(["match", "a.png", "b.png", "--match-impl", "ivf",
-                  "--device", "cpu"])
-
-
 def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
     from sift_tpu_torch import cli
     paths = [str(tmp_path / f"{n}.png") for n in ("a", "b")]

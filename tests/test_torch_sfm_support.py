@@ -241,12 +241,6 @@ def test_refused_methods(method):
         getattr(pipe, method)(mesh=object())
 
 
-@pytest.mark.parametrize("flags", [["--plot", "p.png"]])
-def test_refused_cli_flags(flags):
-    with pytest.raises(NotImplementedError, match=flags[0]):
-        cli.main(["sfm", TUM_DIR, "--device", "cpu", *flags])
-
-
 def test_pipeline_needs_the_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
