@@ -174,12 +174,31 @@ Phases, each fatal on failure:
      against the CPU: H within HOMOGRAPHY_RTOL, inlier sets equal; (g)
      phase 8's window-BA state through `save_checkpoint` and
      `restore_checkpoint(target=)` onto the card, bit-identical.
+  15. the distribution layer (`sift_tpu_torch.dist`) in a one-rank NCCL
+     world (`init_distributed` on tcp://localhost, a free port; NCCL
+     refuses two ranks on one card, and a one-rank collective is the
+     identity, so every result must equal the single-device call's bit for
+     bit): (a) `extract_batch_sharded(replicate=True)` on phase 5's B=8
+     frames (launches 4/4/4/0) against `extract_batch`; (b)
+     `match_large_sharded` on phase 6's 8192-feature pair (launches
+     0/0/0/2) against `match_descriptors`; (c) `run_ba_sharded` on phase
+     8's window and map scenes, `v_mode` "psum" and "reduce_scatter",
+     against `run_ba`, with ms per LM iteration sharded and single in
+     turns and the collectives per LM iteration counted; (d) both sharded
+     pose graphs at 256/1024 against phase 10c's single-device solves;
+     (e) `SfmPipeline(mesh=)` chunked with async BA on phase 9b's first 48
+     frames (launches 24/24/24/0) against the pipeline without a mesh,
+     then `run_global_ba(mesh=)` against `run_global_ba()`. Every kernel
+     call of (a), (b) and (e) is held against its plain version; ms of a
+     sharded extraction batch and of a sharded 8192^2 match beside the
+     single-device calls'.
 Then it prints one `kernels` JSON line (with each kernel's launches on
 the twoview path as `launches_twoview`, on phase 9b's sequence as
 `launches_sfm`, on phase 10a's as `launches_loop`, on phase 11a's as
 `launches_chunked`, on phase 12b's as `launches_stereo` and on phase
 13c's as `launches_subpixel`, with 13c's times as `*_subpixel`, and on
-phase 14a's three requests and 14c's match as `launches_serve`), the card
+phase 14a's three requests and 14c's match as `launches_serve`, and on
+phase 15's dist paths (a), (b) and (e) as `launches_dist`), the card
 line, and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
@@ -413,6 +432,17 @@ SERVE_LARGE_LAUNCHES = {"gather_windows": 8, "refine_walk": 8,
 # (f) `fit_homography` and homography RANSAC, card against the CPU: H to
 # this share of its largest entry, inlier sets equal.
 HOMOGRAPHY_RTOL = 1e-4
+# Phase 15: the dist paths' launches in a one-rank world: (a) one sharded
+# extraction batch, (b) one sharded 8192^2 match (forward and mutual), (e)
+# the mesh pipeline on phase 9b's first 48 frames, 6 chunks of 8.
+DIST_FRAMES = 48
+DIST_LAUNCHES = {
+    "extract": EXPECTED_LAUNCHES,
+    "match": {"gather_windows": 0, "refine_walk": 0,
+              "descriptor_accumulate": 0, "streaming_top2": 2},
+    "sfm": {"gather_windows": 24, "refine_walk": 24,
+            "descriptor_accumulate": 24, "streaming_top2": 0}}
+DIST_REPS = 3
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -1061,7 +1091,8 @@ def row_map(m) -> dict:
 def match_phase(torch, card: str):
     """Phase 6; returns ({extraction kernel: max abs err at this path's
     shapes}, {"refine_walk" and "descriptor_accumulate": times and bound at
-    these shapes}, the `streaming_top2` row of the kernels line)."""
+    these shapes}, the pair's two `Keypoints`, the `streaming_top2` row of
+    the kernels line)."""
     from sift_tpu_torch import SiftConfig, extract_batch
     from sift_tpu_torch.config import MatchConfig, RansacConfig
     from sift_tpu_torch.geometry.homography import ransac_homography
@@ -1280,7 +1311,7 @@ def match_phase(torch, card: str):
 
     bound_ms, bound_by = bound(tot["bytes"], tot["ops"])
     src, replaces = SOURCES["streaming_top2"]
-    return extraction_err, at_size, {
+    return extraction_err, at_size, (ka, kb), {
         "name": "streaming_top2", "route": "cuda", "source": src,
         "replaces": replaces, "launches": launches["streaming_top2"],
         "max_abs_err": tot["err"],
@@ -1578,12 +1609,14 @@ def ba_phase(torch, card: str) -> dict:
         obs_per_camera=MAP_OBS_PER_CAM, pose_noise=0.02, landmark_noise=0.2)
     print(f"phase 8: corridor scene made in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    map_cfg = BAConfig(max_iterations=10, cg_iterations=50, solver="pcg",
+                       loss="huber")
     return {
         "window": ba_case(torch, card, "window BA", window, BAConfig(),
                           cpu_iters=BAConfig().max_iterations),
-        "map": ba_case(torch, card, "map-scale BA", corridor,
-                       BAConfig(max_iterations=10, cg_iterations=50,
-                                solver="pcg", loss="huber"), cpu_iters=2),
+        "map": ba_case(torch, card, "map-scale BA", corridor, map_cfg,
+                       cpu_iters=2),
+        "scenes": {"window": (window, BAConfig()), "map": (corridor, map_cfg)},
     }
 
 
@@ -3270,6 +3303,288 @@ def serve_phase(torch, card: str, window_state, boot_calls) -> tuple:
     return launches_serve, errs
 
 
+def free_port() -> int:
+    """A free TCP port on localhost, for the process group's rendezvous."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Count the `torch.distributed` collectives issued inside, by name
+    (the port calls them through the module, so wrapping its attributes
+    sees every call)."""
+    import torch.distributed as dist
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    originals = {n: getattr(dist, n) for n in COLLECTIVES}
+
+    def counted(name):
+        def call(*a, **k):
+            counts[name] += 1
+            return originals[name](*a, **k)
+        return call
+
+    for n in COLLECTIVES:
+        setattr(dist, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n in COLLECTIVES:
+            setattr(dist, n, originals[n])
+
+
+def in_turns(torch, a, b, reps: int = DIST_REPS) -> tuple:
+    """Host ms per call of `a` and of `b`, each turn `reps` calls ending in
+    a synchronize, in turns a, b, b, a; returns (median a, median b)."""
+    times = ([], [])
+    for which in (0, 1, 1, 0):
+        fn = (a, b)[which]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        times[which].append(1e3 * (time.perf_counter() - t0) / reps)
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
+def differing(torch, a, b, fields) -> list:
+    """The fields of `a` and `b` that are not bit-identical."""
+    return [f for f in fields
+            if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def dist_phase(torch, card: str, frames_np, pair_kp, ba_scenes) -> tuple:
+    """Phase 15: the dist paths in a one-rank NCCL world, each held bit
+    for bit against its single-device call. Returns ({kernel: launches on
+    (a), (b) and (e)}, {kernel: max abs err of those calls against the
+    plain versions})."""
+    import torch.distributed as dist
+    from sift_tpu_torch import SiftConfig, extract_batch
+    from sift_tpu_torch.ba.solver import run_ba
+    from sift_tpu_torch.config import MatchConfig, PipelineConfig
+    from sift_tpu_torch.dist import (extract_batch_sharded, make_mesh,
+                                     match_large_sharded,
+                                     optimize_pose_graph_sharded,
+                                     optimize_pose_graph_sim3_sharded,
+                                     run_ba_sharded)
+    from sift_tpu_torch.dist.mesh import init_distributed
+    from sift_tpu_torch.kernels import cuda as kcuda
+    from sift_tpu_torch.kernels.cuda import match as mk
+    from sift_tpu_torch.matching.matcher import match_descriptors
+    from sift_tpu_torch.slam import pose_graph as pg
+    from sift_tpu_torch.slam.pipeline import SfmPipeline
+
+    t_phase = time.perf_counter()
+    init_distributed("cuda", f"tcp://localhost:{free_port()}", 0, 1)
+    try:
+        mesh = make_mesh()
+        print(f"phase 15: one-rank {dist.get_backend()} world, mesh "
+              f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}, joined in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        targets = dict(extraction_kernels(),
+                       streaming_top2=(mk, "streaming_top2"))
+        launches, held = {}, {name: [] for name in targets}
+        originals = {}
+
+        def counted(label, fn):
+            with recording(targets) as (calls, orig):
+                kcuda.reset_launch_counts()
+                out = fn()
+                torch.cuda.synchronize()
+                launches[label] = kcuda.launch_counts()
+            originals.update(orig)
+            for name, c in calls.items():
+                held[name].extend(c)
+            print(f"phase 15 {label} launches: {launches[label]}", flush=True)
+            if launches[label] != DIST_LAUNCHES[label]:
+                raise Failed(f"phase 15 {label} launch counts "
+                             f"{launches[label]} != {DIST_LAUNCHES[label]}")
+            return out
+
+        # (a) sharded extraction against extract_batch
+        cfg = SiftConfig()
+        frames = torch.from_numpy(frames_np).cuda()
+        kp = counted("extract", lambda: extract_batch_sharded(
+            mesh, frames, cfg, replicate=True))
+        ref = extract_batch(frames, cfg)
+        bad = differing(torch, kp, ref,
+                        [f.name for f in dataclasses.fields(ref)])
+        ms_single, ms_dist = in_turns(
+            torch, lambda: extract_batch(frames, cfg),
+            lambda: extract_batch_sharded(mesh, frames, cfg, replicate=True),
+            reps=5)
+        print(f"phase 15a extract_batch_sharded B={BATCH} {HEIGHT}x{WIDTH}: "
+              f"bit-identical to extract_batch {not bad} {bad}; "
+              f"{ms_dist:.3f} ms a batch against {ms_single:.3f} ms single "
+              f"(host clock, 5 calls a turn, in turns); card {card}",
+              flush=True)
+        if bad:
+            raise Failed(f"sharded extraction differs in {bad}")
+
+        # (b) the large sharded match against match_descriptors
+        ka, kb = pair_kp
+        mcfg = MatchConfig(ratio=0.8, mutual=True, max_matches=MATCH_FEATURES)
+        args = (ka.desc, ka.valid, kb.desc, kb.valid)
+        m = counted("match", lambda: match_large_sharded(mesh, *args, mcfg))
+        ref = match_descriptors(*args, mcfg)
+        bad = differing(torch, m, ref, ("idx_a", "idx_b", "distance",
+                                        "valid"))
+        ms_single, ms_dist = in_turns(
+            torch, lambda: match_descriptors(*args, mcfg),
+            lambda: match_large_sharded(mesh, *args, mcfg), reps=5)
+        print(f"phase 15b match_large_sharded {MATCH_FEATURES}^2: "
+              f"{int(m.count())} matches, bit-identical to match_descriptors "
+              f"{not bad} {bad}; {ms_dist:.3f} ms a match against "
+              f"{ms_single:.3f} ms single (host clock, 5 calls a turn, in "
+              f"turns); card {card}", flush=True)
+        if bad:
+            raise Failed(f"sharded match differs in {bad}")
+
+        # (c) sharded BA at window capacity and at map scale, both v_modes
+        fields = ("poses", "landmarks", "cost", "rmse", "damping",
+                  "iterations", "cg_iters")
+        for label, (scene, bcfg) in ba_scenes.items():
+            ba_args = ba_inputs(torch, scene, "cuda")
+            fixed = np.zeros(scene["poses_init"].shape[0], bool)
+            fixed[:2] = True
+            fixed_d = torch.from_numpy(fixed).cuda()
+            ref = run_ba(*ba_args, bcfg, fixed_d)
+            with counting_collectives() as base:
+                run_ba_sharded(mesh, *ba_args, cfg=bcfg.replace(
+                    max_iterations=0), fixed_cam_mask=fixed_d)
+            for v_mode in ("psum", "reduce_scatter"):
+                with counting_collectives() as coll:
+                    st = run_ba_sharded(mesh, *ba_args, cfg=bcfg,
+                                        fixed_cam_mask=fixed_d,
+                                        v_mode=v_mode)
+                    torch.cuda.synchronize()
+                bad = differing(torch, st, ref, fields)
+                per_iter = {k: (coll[k] - base[k]) / bcfg.max_iterations
+                            for k in COLLECTIVES}
+                print(f"phase 15c {label} BA v_mode={v_mode}: bit-identical "
+                      f"to run_ba {not bad} {bad}; rmse {float(st.rmse):.5f}, "
+                      f"{int(st.iterations)} LM / {int(st.cg_iters)} CG "
+                      f"iterations; collectives {dict(coll)} in all, per LM "
+                      f"iteration {per_iter} (before the loop {dict(base)})",
+                      flush=True)
+                if bad:
+                    raise Failed(f"sharded {label} BA ({v_mode}) differs in "
+                                 f"{bad}")
+            ms_single, ms_dist = in_turns(
+                torch, lambda: run_ba(*ba_args, bcfg, fixed_d).rmse,
+                lambda: run_ba_sharded(mesh, *ba_args, cfg=bcfg,
+                                       fixed_cam_mask=fixed_d).rmse, reps=1)
+            n = bcfg.max_iterations
+            print(f"phase 15c {label} BA: {ms_dist / n:.3f} ms per LM "
+                  f"iteration sharded against {ms_single / n:.3f} single "
+                  f"(host clock over a {n}-iteration run, in turns); card "
+                  f"{card}", flush=True)
+        # What a one-rank collective costs the host, and whether a sharded
+        # solve makes the host wait (the single one makes no sync, phase 8).
+        group = mesh.get_group("data")
+        t = torch.zeros(6, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            dist.all_reduce(t, group=group)
+        issue_us = 1e6 * (time.perf_counter() - t0) / 200
+        torch.cuda.synchronize()
+        done_us = 1e6 * (time.perf_counter() - t0) / 200
+        sites = count_syncs(torch, lambda: run_ba_sharded(
+            mesh, *ba_args, cfg=bcfg, fixed_cam_mask=fixed_d))
+        print(f"phase 15c one-rank NCCL all_reduce of 6 floats: "
+              f"{issue_us:.1f} us of host time a call to issue, "
+              f"{done_us:.1f} us a call to complete (200 calls); host syncs "
+              f"of one sharded {label} BA run: {len(sites)} "
+              f"{sorted(set(sites))}", flush=True)
+
+        # (d) both sharded pose graphs at capacity
+        for D, name, cls, opt, opt_dist in (
+                (6, "SE(3)", pg.PoseGraph, pg.optimize_pose_graph,
+                 optimize_pose_graph_sharded),
+                (7, "Sim(3)", pg.Sim3Graph, pg.optimize_pose_graph_sim3,
+                 optimize_pose_graph_sim3_sharded)):
+            graph = cls(*(a.cuda() for a in capacity_graph(torch, D, seed=D)))
+            ref = opt(graph, iterations=PGO_ITERATIONS).poses
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counting_collectives() as coll:
+                got = opt_dist(mesh, graph, iterations=PGO_ITERATIONS).poses
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt(graph, iterations=PGO_ITERATIONS).poses.sum().item()
+            t2 = time.perf_counter()
+            same = torch.equal(got, ref)
+            print(f"phase 15d {name} sharded pose graph at {PGO_NODES}/"
+                  f"{PGO_EDGES}: bit-identical to the single-device solve "
+                  f"{same}; {1e3 * (t1 - t0):.3f} ms sharded against "
+                  f"{1e3 * (t2 - t1):.3f} ms single (host clock, one run "
+                  f"each after a single-device run); collectives "
+                  f"{dict(coll)}; card {card}", flush=True)
+            if not same:
+                raise Failed(f"sharded {name} pose graph differs")
+
+        # (e) the mesh pipeline against the pipeline without one
+        frames48 = list(make_sfm_sequence()[0][:DIST_FRAMES])
+        pcfg = PipelineConfig(chunked_tracking=True, ba_async=True)
+        plain = SfmPipeline(SFM_INTRINSICS, pcfg, seed=0)
+        t0 = time.perf_counter()
+        plain.process_sequence(frames48, batch=SFM_BATCH)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        meshed = SfmPipeline(SFM_INTRINSICS, pcfg, seed=0, mesh=mesh)
+        t0 = time.perf_counter()
+        counted("sfm", lambda: meshed.process_sequence(frames48,
+                                                       batch=SFM_BATCH))
+        mesh_s = time.perf_counter() - t0
+        bad = [k for k, equal in (
+            ("positions", np.array_equal(meshed.positions(),
+                                         plain.positions())),
+            ("landmarks", np.array_equal(meshed.landmarks, plain.landmarks)),
+            ("tracked", [r["tracked"] for r in meshed.trajectory]
+             == [r["tracked"] for r in plain.trajectory]),
+            ("chunk_stats", meshed.chunk_stats == plain.chunk_stats))
+            if not equal]
+        print(f"phase 15e SfmPipeline(mesh=) on {DIST_FRAMES} frames, "
+              f"chunked + async BA: {len(meshed.keyframes)} keyframes, "
+              f"{meshed.landmarks.shape[0]} landmarks, chunk_stats "
+              f"{meshed.chunk_stats}; trajectory and map bit-identical to the "
+              f"pipeline without a mesh {not bad} {bad}; "
+              f"{DIST_FRAMES / mesh_s:.3f} "
+              f"frames/s against {DIST_FRAMES / plain_s:.3f} (host clock, "
+              f"one run each, the plain one first); card {card}", flush=True)
+        if bad:
+            raise Failed(f"the mesh pipeline differs from the plain one in "
+                         f"{bad}")
+        with counting_collectives() as coll:
+            g_mesh = meshed.run_global_ba(mesh=mesh)
+        g_plain = plain.run_global_ba()
+        same = g_mesh == g_plain and np.array_equal(
+            meshed.landmarks, plain.landmarks) and all(
+            np.array_equal(a.pose, b.pose)
+            for a, b in zip(meshed.keyframes, plain.keyframes))
+        print(f"phase 15e run_global_ba(mesh=): {g_mesh}; bit-identical to "
+              f"run_global_ba() {same}; collectives {dict(coll)}", flush=True)
+        if not same:
+            raise Failed(f"global BA on the mesh {g_mesh} differs from "
+                         f"{g_plain}")
+
+        errs = hold_served_kernels(torch, "phase 15", held, originals)
+        total = {name: sum(launches[label][name] for label in launches)
+                 for name in targets}
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 15: dist launches {total}, {time.perf_counter() - t_phase:.1f}"
+          f" s in all", flush=True)
+    return total, errs
+
+
 def finish(torch, card: str) -> int:
     """Print the card line and, as the last line, the result."""
     print(f"card: {card}", flush=True)
@@ -3473,7 +3788,7 @@ def main() -> int:
 
     # 6. the matching path at full width
     try:
-        extraction_err, at_size, row = match_phase(torch, card)
+        extraction_err, at_size, pair_kp, row = match_phase(torch, card)
     except Failed as e:
         return fail(str(e))
     # 7. the two-view path; 8. bundle adjustment
@@ -3487,6 +3802,8 @@ def main() -> int:
         sub_launches, sub_err, sub_timing = parity_phase(torch, card)
         serve_launches, serve_err = serve_phase(
             torch, card, ba["window"]["state"], boot_calls)
+        dist_launches, dist_err = dist_phase(torch, card, frames_np, pair_kp,
+                                             ba["scenes"])
     except Failed as e:
         return fail(str(e))
     size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
@@ -3504,6 +3821,8 @@ def main() -> int:
         r["max_abs_err_subpixel"] = sub_err[r["name"]]
         r["launches_serve"] = serve_launches[r["name"]]
         r["max_abs_err_serve"] = serve_err[r["name"]]
+        r["launches_dist"] = dist_launches[r["name"]]
+        r["max_abs_err_dist"] = dist_err[r["name"]]
         r.update({f"{k}_subpixel": v
                   for k, v in sub_timing[r["name"]].items()})
         r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
@@ -3524,6 +3843,8 @@ def main() -> int:
     row["launches_subpixel"] = sub_launches["streaming_top2"]
     row["launches_serve"] = serve_launches["streaming_top2"]
     row["max_abs_err_serve"] = serve_err["streaming_top2"]
+    row["launches_dist"] = dist_launches["streaming_top2"]
+    row["max_abs_err_dist"] = dist_err["streaming_top2"]
     rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)

@@ -6,7 +6,9 @@ and landmark Hessian blocks by segment sums over observations (the same
 from run to run on the card), and the reduced camera system solved by
 matrix-free PCG or, for window-sized problems, a dense Cholesky. Every
 loop has a fixed trip count and freezes its state by mask, so `run_ba`
-makes no host sync on the card.
+makes no host sync on the card. Distributed (`dist/ba_dist.py`), each
+rank holds a shard of the observations and every segment sum is
+all-reduced over the `axis_name` process group.
 """
 
 from sift_tpu_torch.ba.residuals import linearize, reprojection_residuals

@@ -1,5 +1,5 @@
 """Intrinsics refinement, self-calibration (counterpart of
-`sift_tpu/ba/intrinsics.py`, single device).
+`sift_tpu/ba/intrinsics.py`).
 
 The pinhole (fx, fy, cx, cy) block couples every observation, so it is
 refined by outer-loop coordinate descent: Gauss-Newton on the 4 intrinsic
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from sift_tpu_torch.dist.mesh import psum_many
 from sift_tpu_torch.geometry import lie
 
 
@@ -32,9 +33,11 @@ def _residuals(K, xn, yn, obs_uv):
 
 def refine_intrinsics(intrinsics, poses, landmarks, obs_cam, obs_lm, obs_uv,
                       obs_valid, iters: int = 10, huber_delta: float = 3.0,
-                      damping: float = 1e-4):
+                      damping: float = 1e-4, axis_name=None):
     """Gauss-Newton on (fx, fy, cx, cy) with structure fixed. Returns
-    (intrinsics (4,), rmse)."""
+    (intrinsics (4,), rmse). Distributed, the observation arrays are this
+    rank's shard and `axis_name` (a process group) all-reduces the 4x4
+    normal equations, the cost and the final RMSE's sums."""
     xn, yn, z = _camera_points(poses, landmarks, obs_cam, obs_lm)
     ok = obs_valid & (z > 1e-6)
     zero, one = torch.zeros_like(xn), torch.ones_like(xn)
@@ -50,7 +53,7 @@ def refine_intrinsics(intrinsics, poses, landmarks, obs_cam, obs_lm, obs_uv,
         Jw = J * w[:, None, None]
         H = (Jw[:, :, :, None] * J[:, :, None, :]).sum(dim=(0, 1))
         g = (Jw * r[:, :, None]).sum(dim=(0, 1))
-        return H, g, (w * n2).sum()
+        return psum_many(axis_name, H, g, (w * n2).sum())
 
     K = intrinsics
     lam = torch.full((), damping, dtype=intrinsics.dtype,
@@ -64,7 +67,10 @@ def refine_intrinsics(intrinsics, poses, landmarks, obs_cam, obs_lm, obs_uv,
 
     r = _residuals(K, xn, yn, obs_uv)
     n2 = torch.where(ok, (r * r).sum(dim=-1), 0.0)
-    rmse = torch.sqrt(n2.sum() / torch.clamp_min(ok.sum(), 1))
+    n2s, cnt = n2.sum(), ok.sum()
+    if axis_name is not None:
+        n2s, cnt = psum_many(axis_name, n2s, cnt.to(n2s.dtype))
+    rmse = torch.sqrt(n2s / torch.clamp_min(cnt, 1))
     return K, rmse
 
 

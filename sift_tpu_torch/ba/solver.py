@@ -1,5 +1,5 @@
 """Levenberg-Marquardt loop of Schur-complement bundle adjustment
-(counterpart of `sift_tpu/ba/solver.py`, single device).
+(counterpart of `sift_tpu/ba/solver.py`).
 
 The JAX package runs one `lax.while_loop` while iterations <
 max_iterations and damping < damping_max. A Python `while` on that
@@ -11,6 +11,11 @@ solver makes no host sync between its first launch and the caller's read.
 
 Gauge: callers pass `fixed_cam_mask` (first camera, or first two for
 monocular scale); updates of fixed cameras are structurally zero.
+
+Distributed (`dist/ba_dist.py`), the same loop runs on every rank over its
+observation shard: block sums, costs and the median histogram are
+all-reduced over `axis_name`, so every decision is the same on every rank
+and every rank issues the same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from sift_tpu_torch.ba.residuals import cost_parts, reprojection_residuals
 from sift_tpu_torch.ba.schur import (back_substitute, build_system,
                                      dense_schur_solve, pcg, schur_rhs)
 from sift_tpu_torch.config import BAConfig
+from sift_tpu_torch.dist.mesh import psum_many
 from sift_tpu_torch.geometry import lie
 from sift_tpu_torch.utils.device import check_f32_matmul, constant
 
@@ -47,9 +53,10 @@ class BAState:
 
 
 def _median_residual(poses, intrinsics, landmarks, obs_cam, obs_lm, obs_uv,
-                     obs_valid) -> torch.Tensor:
+                     obs_valid, axis_name=None) -> torch.Tensor:
     """Approximate median |r| over valid observations, from a fixed
-    log-bin histogram (exact counts)."""
+    log-bin histogram (exact counts, all-reduced over `axis_name`, so the
+    same on every mesh shape)."""
     r, _ = reprojection_residuals(poses, intrinsics, landmarks, obs_cam,
                                   obs_lm, obs_uv)
     rn = torch.linalg.vector_norm(r, dim=-1)
@@ -60,24 +67,35 @@ def _median_residual(poses, intrinsics, landmarks, obs_cam, obs_lm, obs_uv,
     v = obs_valid.to(torch.float32)
     counts = torch.zeros(edges.shape[0] + 1, dtype=torch.float32,
                          device=rn.device).index_add_(0, bidx, v)
+    counts, cnt = psum_many(axis_name, counts, v.sum())
     cum = torch.cumsum(counts, dim=0)
-    med_bin = torch.argmax((cum >= 0.5 * v.sum()).to(torch.uint8))
+    med_bin = torch.argmax((cum >= 0.5 * cnt).to(torch.uint8))
     return edges.index_select(0, torch.clamp(med_bin, 0, edges.shape[0] - 1)
                               .reshape(1))[0]
 
 
 def run_ba(poses, intrinsics, landmarks, obs_cam, obs_lm, obs_uv, obs_valid,
-           cfg: BAConfig, fixed_cam_mask) -> BAState:
+           cfg: BAConfig, fixed_cam_mask, axis_name=None, landmark_axis=None,
+           v_mode: str = "psum") -> BAState:
     """Optimize poses and landmarks where the tensors lie; returns the
-    final `BAState`."""
+    final `BAState`.
+
+    Distributed, obs_* are this rank's shard and `axis_name` is the
+    process group of the shards (JAX's mesh axis); poses, landmarks and
+    intrinsics are replicated, and so is the result. `landmark_axis` and
+    `v_mode`: `build_system`'s."""
     check_f32_matmul(poses, "run_ba")
     obs = (obs_cam, obs_lm, obs_uv, obs_valid)
 
     def total_cost(p, l, delta):
         c, sq, cnt = cost_parts(p, intrinsics, l, *obs, delta, cfg.loss)
+        if axis_name is not None:
+            # The squared sum and the count separately, so that shards
+            # with uneven valid counts weigh by their count.
+            c, sq, cnt = psum_many(axis_name, c, sq, cnt.to(sq.dtype))
         return c, torch.sqrt(sq / torch.clamp_min(cnt, 1))
 
-    med0 = _median_residual(poses, intrinsics, landmarks, *obs)
+    med0 = _median_residual(poses, intrinsics, landmarks, *obs, axis_name)
     c0, rmse0 = total_cost(poses, landmarks, cfg.huber_delta)
     dev = poses.device
     st = BAState(
@@ -106,7 +124,8 @@ def run_ba(poses, intrinsics, landmarks, obs_cam, obs_lm, obs_uv, obs_valid,
         else:
             delta_eff = cfg.huber_delta
         sys = build_system(st.poses, intrinsics, st.landmarks, *obs,
-                           delta_eff, st.damping, fixed_cam_mask, cfg.loss)
+                           delta_eff, st.damping, fixed_cam_mask, cfg.loss,
+                           axis_name, landmark_axis, v_mode)
         b = schur_rhs(sys)
         if use_dense:
             dc = dense_schur_solve(sys, b)
@@ -145,10 +164,10 @@ def run_ba(poses, intrinsics, landmarks, obs_cam, obs_lm, obs_uv, obs_valid,
     return st
 
 
-def run_ba_map(state, cfg: BAConfig, fixed_cam_mask):
+def run_ba_map(state, cfg: BAConfig, fixed_cam_mask, axis_name=None):
     """Optimize a `sift_tpu_torch.types.MapState`; returns (new_state,
     BAState)."""
     st = run_ba(state.poses, state.intrinsics, state.landmarks,
                 state.obs_cam, state.obs_lm, state.obs_uv, state.obs_valid,
-                cfg, fixed_cam_mask)
+                cfg, fixed_cam_mask, axis_name)
     return state.replace(poses=st.poses, landmarks=st.landmarks), st

@@ -82,7 +82,10 @@ def _add_reference_flags(p: argparse.ArgumentParser) -> None:
                    default="float32",
                    help="gradient-map precision for the window gather")
     p.add_argument("--extrema-topk", choices=("exact", "approx"),
-                   default="exact", help="'exact' only; 'approx' is not ported")
+                   default="exact",
+                   help="candidate selection; 'approx' (a TPU partial sort "
+                        "in the JAX package, exact elsewhere) selects "
+                        "exactly")
 
 
 def _sift_config(args):

@@ -1,8 +1,9 @@
 """Configuration of the PyTorch port.
 
 Copies of `sift_tpu.config.SiftConfig`, `MatchConfig`, `AnnConfig`,
-`RansacConfig`, `BAConfig` and `PipelineConfig` (same fields, defaults and checks), kept here so that
-importing the port never imports the JAX package. The system has no learned weights: the
+`RansacConfig`, `BAConfig`, `MeshConfig` and `PipelineConfig` (same
+fields, defaults and checks), kept here so that importing the port never
+imports the JAX package. The system has no learned weights: the
 configuration, and the blur operators and sigma tables derived from it,
 are all that crosses from the JAX package. `config_from_dict` takes
 `dataclasses.asdict` of a `sift_tpu` config.
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +51,8 @@ class SiftConfig:
     pallas: str = "auto"
     # Gradient maps are cast to this type before the window gather.
     window_dtype: str = "bfloat16"
-    # Only "exact" is ported ("approx" was a TPU partial sort; parity
-    # mode is exact either way).
+    # "approx" was a TPU partial sort (`lax.approx_max_k`), which is exact
+    # off the TPU; the port selects exactly either way, as does parity.
     extrema_topk: str = "exact"
 
     def __post_init__(self):
@@ -146,9 +148,31 @@ class BAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process-mesh layout for distributed operation (`sift_tpu_torch.dist`).
+
+    axes: (data, model). `data` shards independent work items (images,
+    observations, pose-graph edges); `model` shards within-problem state
+    (landmark blocks). One process per device: `num_devices` is the
+    `torch.distributed` world size.
+    """
+
+    data: int = 1
+    model: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model
+
+    def replace(self, **kw) -> "MeshConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Top-level SLAM/SfM pipeline configuration (every field is honoured
-    on one device; meshes are not ported)."""
+    """Top-level SLAM/SfM pipeline configuration (every field is honoured;
+    a process mesh is `SfmPipeline(mesh=)`'s argument)."""
 
     sift: SiftConfig = SiftConfig()
     match: MatchConfig = MatchConfig()
@@ -239,7 +263,7 @@ class PipelineConfig:
 
 
 _CONFIGS = (SiftConfig, MatchConfig, AnnConfig, RansacConfig, BAConfig,
-            PipelineConfig)
+            MeshConfig, PipelineConfig)
 _NESTED = {"sift": SiftConfig, "match": MatchConfig, "ransac": RansacConfig,
            "ba": BAConfig}
 
@@ -247,9 +271,9 @@ _NESTED = {"sift": SiftConfig, "match": MatchConfig, "ransac": RansacConfig,
 def config_from_dict(d: dict):
     """Build a port config from `dataclasses.asdict` of a JAX-package
     config: the one of `SiftConfig`, `MatchConfig`, `AnnConfig`,
-    `RansacConfig`, `BAConfig`, `PipelineConfig` whose fields hold every key (their field
-    names are disjoint). A `PipelineConfig`'s nested configs may be dicts
-    too."""
+    `RansacConfig`, `BAConfig`, `MeshConfig`, `PipelineConfig` whose fields
+    hold every key (their field names are disjoint). A `PipelineConfig`'s
+    nested configs may be dicts too."""
     for cls in _CONFIGS:
         if set(d) <= {f.name for f in dataclasses.fields(cls)}:
             if cls is PipelineConfig:

@@ -49,10 +49,11 @@ def top_k_stable(x: torch.Tensor, k: int):
 def detect_extrema_octave(dogs: torch.Tensor, cfg: SiftConfig, octave: int = 0):
     """dogs: (B, L, H, W). Returns (x, y, level, score, valid), each (B, K)
     with K = cfg.octave_cap(octave) (parity: cfg.max_keypoints_per_octave),
-    and n_pruned (B,) int32: candidates beyond the cap."""
+    and n_pruned (B,) int32: candidates beyond the cap. The selection is
+    the exact top-K under either `extrema_topk`: the JAX package's "approx"
+    (`lax.approx_max_k`) is a TPU partial sort and computes the exact top-K
+    everywhere else."""
     parity = cfg.mode == "parity"
-    if not parity and cfg.extrema_topk != "exact":
-        raise NotImplementedError('extrema_topk="approx" is not ported')
     B, L, H, W = dogs.shape
     K = cfg.max_keypoints_per_octave if parity else cfg.octave_cap(octave)
     wmax = _window_extreme(dogs, is_max=True, quadrant=parity)

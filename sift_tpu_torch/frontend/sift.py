@@ -61,12 +61,6 @@ def _resolve_device(device, cfg: SiftConfig) -> torch.device:
     return dev
 
 
-def _check_config(cfg: SiftConfig) -> None:
-    # Parity selection is always exact, as in JAX.
-    if cfg.mode == "lowe" and cfg.extrema_topk != "exact":
-        raise NotImplementedError('extrema_topk="approx" is not ported')
-
-
 def extract_lowe_batched(imgs: torch.Tensor, cfg: SiftConfig,
                          with_descriptors: bool = True) -> Keypoints:
     """Batch-flattened lowe extraction over a (B, H, W) float32 tensor."""
@@ -166,7 +160,6 @@ def extract_batch(imgs, cfg: SiftConfig = SiftConfig(),
                   device="cuda") -> Keypoints:
     """Extract SIFT keypoints from (B, H, W) images in [0, image_max]
     (numpy array or tensor). All fields gain a leading B."""
-    _check_config(cfg)
     dev = _resolve_device(device, cfg)
     if isinstance(imgs, np.ndarray):
         imgs = torch.from_numpy(imgs)

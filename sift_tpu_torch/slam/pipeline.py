@@ -61,8 +61,14 @@ chunk's tracking stage.
 
 Stereo (`stereo_baseline=`, `process_frame(right=)`,
 `process_sequence(rights=)`): per-keypoint depths from rectified pairs
-(`matching/stereo.py`) feed the RGB-D path. Not ported (each raises
-`NotImplementedError` naming the option): meshes (`dist/`).
+(`matching/stereo.py`) feed the RGB-D path.
+
+Process meshes (`mesh=`, a `dist.make_mesh` mesh): `process_sequence`
+chunk extraction, the FLOPs-dominant stage, runs data-parallel across the
+mesh (`dist/frontend_dist.py`), its keypoints all-gathered so that every
+rank runs the same host logic on the whole chunk (the chunk `batch` must
+divide by the process count); `run_global_ba(mesh=)` shards observations
+through `dist.run_ba_sharded`.
 """
 
 from __future__ import annotations
@@ -217,15 +223,20 @@ class SfmPipeline:
         path). `seed` seeds the pipeline's `torch.Generator` on that
         device. `stereo_baseline`: metres, enables the rectified-stereo
         depth path (`process_frame(..., right=...)`, `process_sequence(...,
-        rights=...)`)."""
+        rights=...)`). `mesh`: a process mesh (`dist.make_mesh`) on
+        `device`'s type; `process_sequence` chunk extraction runs
+        data-parallel across it and every rank runs the pipeline's host
+        logic on the gathered keypoints (each rank builds its own
+        pipeline with the same arguments)."""
         self.cfg = cfg or PipelineConfig()
-        if mesh is not None:
-            raise NotImplementedError("mesh (dist/frontend_dist.py) is not "
-                                      "ported")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to "
                                "run the plain PyTorch path")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot serve a "
+                             f"pipeline on {self.device}")
+        self.mesh = mesh
         self.K = np.asarray(intrinsics, np.float32)    # fx, fy, cx, cy
         self._K = _upload(self.K, self.device)
         self.logger = logger
@@ -309,11 +320,19 @@ class SfmPipeline:
     def _extract(self, gray: torch.Tensor) -> Keypoints:
         if self.frontend is not None:
             return self.frontend(gray)
-        return self._extract_batch(gray[None]).map(lambda a: a[0])
+        return extract_batch(gray[None], self.cfg.sift, True,
+                             device=self.device).map(lambda a: a[0])
 
     def _extract_batch(self, imgs: torch.Tensor) -> Keypoints:
         """(B, H, W) frames on the device, uint8 or f32; uint8 is cast to
-        f32 on the device."""
+        f32 on the device. With a mesh, each rank extracts its B / world
+        frames and every rank gets the whole batch's keypoints."""
+        if self.mesh is not None:
+            from sift_tpu_torch.dist.frontend_dist import \
+                extract_batch_sharded
+            return extract_batch_sharded(self.mesh, imgs, self.cfg.sift,
+                                         with_descriptors=True,
+                                         replicate=True)
         return extract_batch(imgs.to(torch.float32), self.cfg.sift, True,
                              device=self.device)
 
@@ -1895,12 +1914,14 @@ class SfmPipeline:
                       fix_first_n: int = 2) -> Dict[str, float]:
         """Full-map bundle adjustment over every keyframe pose and
         landmark, the first `fix_first_n` keyframes fixed. Buffers are
-        padded to multiples (cameras 8, landmarks 512, observations 2048);
-        one upload, one solve, one packed read. Updates keyframe poses and
-        landmarks in place; returns {"rmse", "n_obs", "n_cams", "n_lms"}."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "run_global_ba(mesh=...) (dist/ba_dist.py) is not ported")
+        padded to multiples (cameras 8, landmarks 512, observations 2048,
+        the last two at least the mesh's process count); one upload, one
+        solve, one packed read. With `mesh` (a `dist.make_mesh` mesh on
+        the pipeline's device type; every rank calls this on the same
+        map), observations run data-sharded and landmark blocks
+        model-sharded through `dist.run_ba_sharded`: the same math, with
+        the block sums all-reduced. Updates keyframe poses and landmarks in
+        place; returns {"rmse", "n_obs", "n_cams", "n_lms"}."""
         self._flush_ba()
         C = len(self.keyframes)
         if C < 2:
@@ -1923,7 +1944,10 @@ class SfmPipeline:
         def pad_to(n, mult):
             return -(-n // mult) * mult
 
-        Ccap, Lcap, Ocap = pad_to(C, 8), pad_to(L, 512), pad_to(O, 2048)
+        ndev = mesh.mesh.numel() if mesh is not None else 1
+        Ccap = pad_to(C, 8)
+        Lcap = pad_to(L, max(512, ndev))
+        Ocap = pad_to(O, max(2048, ndev))
         poses = np.zeros((Ccap, 6), np.float32)
         poses[:C] = np.stack([kf.pose for kf in self.keyframes])
         lms = np.zeros((Lcap, 3), np.float32)
@@ -1943,8 +1967,13 @@ class SfmPipeline:
         bcfg = cfg_ba if cfg_ba is not None else self.cfg.ba
         p, lm, o_c, o_l, o_uv, o_v, fx = self._upload_many(
             poses, lms, obs_cam, obs_lm, obs_uv, obs_valid, fixed)
-        packed = _read(self._pack_ba(run_ba(p, self._K, lm, o_c, o_l, o_uv,
-                                            o_v, bcfg, fx)))
+        if mesh is not None:
+            from sift_tpu_torch.dist.ba_dist import run_ba_sharded
+            st = run_ba_sharded(mesh, p, self._K, lm, o_c, o_l, o_uv, o_v,
+                                cfg=bcfg, fixed_cam_mask=fx)
+        else:
+            st = run_ba(p, self._K, lm, o_c, o_l, o_uv, o_v, bcfg, fx)
+        packed = _read(self._pack_ba(st))
         new_poses = packed[:Ccap * 6].reshape(Ccap, 6)
         new_lms = packed[Ccap * 6:Ccap * 6 + Lcap * 3].reshape(Lcap, 3)
         for ci, kf in enumerate(self.keyframes):

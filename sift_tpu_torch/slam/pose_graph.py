@@ -1,5 +1,5 @@
 """Pose-graph optimization on SE(3) and Sim(3) (counterpart of
-`sift_tpu/slam/pose_graph.py`, single device).
+`sift_tpu/slam/pose_graph.py`).
 
 Nodes are keyframe poses (world-from-keyframe tangents); edges carry
 relative measurements z_e ~ log(T_i^-1 T_j) with scalar information
@@ -23,6 +23,10 @@ bit-identical.
 
 Everything is fixed-shape: edge lists are capacity buffers with weight 0
 on padding, and fixed (gauge) nodes get zeroed Jacobians.
+
+Distributed (`dist/pose_graph_dist.py`), each rank holds a shard of the
+edges, and every per-node segment sum and the cost are all-reduced over
+`axis_name`, a process group (JAX's `psum` over the mesh axis).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import dataclasses
 import torch
 
 from sift_tpu_torch.ba.schur import _bmv, _btv, _gram, _seg_sum
+from sift_tpu_torch.dist.mesh import psum
 from sift_tpu_torch.geometry import lie, sim3
 from sift_tpu_torch.utils.linalg import inv_or_nan
 
@@ -139,21 +144,23 @@ def _linearize(graph: PoseGraph, poses: torch.Tensor):
             J[..., D:] * sw * free_j[:, None, None])
 
 
-def _h_matvec(Ji, Jj, ei, ej, n, x, damping):
+def _h_matvec(Ji, Jj, ei, ej, n, x, damping, axis_name=None):
     """(J^T J + damping I) x via two edge sweeps. x: (N, D)."""
     t = _bmv(Ji, x[ei]) + _bmv(Jj, x[ej])             # (E, D) = J_e x
-    out = _seg_sum(_btv(Ji, t), ei, n) + _seg_sum(_btv(Jj, t), ej, n)
+    out = _seg_sum(_btv(Ji, t), ei, n, axis_name) + \
+        _seg_sum(_btv(Jj, t), ej, n, axis_name)
     return out + damping * x
 
 
-def _cg_solve(graph, Ji, Jj, b, damping, cg_iterations, cg_tol):
+def _cg_solve(graph, Ji, Jj, b, damping, cg_iterations, cg_tol,
+              axis_name=None):
     """Block-Jacobi preconditioned CG, all `cg_iterations` steps, frozen
     by mask once |r|^2 <= cg_tol^2 |b|^2 (the JAX loop's exit)."""
     n, D = b.shape
     ei, ej = graph.edge_i, graph.edge_j
     eye = torch.eye(D, dtype=b.dtype, device=b.device)
-    Dm = _seg_sum(_gram(Ji), ei, n) + _seg_sum(_gram(Jj), ej, n) + \
-        damping * eye
+    Dm = _seg_sum(_gram(Ji), ei, n, axis_name) + \
+        _seg_sum(_gram(Jj), ej, n, axis_name) + damping * eye
     M_inv = inv_or_nan(Dm)
 
     def dot(a, c):
@@ -166,7 +173,7 @@ def _cg_solve(graph, Ji, Jj, b, damping, cg_iterations, cg_tol):
     threshold = cg_tol ** 2 * torch.clamp_min(dot(b, b), 1e-30)
     for _ in range(cg_iterations):
         active = dot(r, r) > threshold
-        Ap = _h_matvec(Ji, Jj, ei, ej, n, p, damping)
+        Ap = _h_matvec(Ji, Jj, ei, ej, n, p, damping, axis_name)
         alpha = rz / torch.clamp_min(dot(p, Ap), 1e-30)
         x_new = x + alpha * p
         r_new = r - alpha * Ap
@@ -181,13 +188,13 @@ def _cg_solve(graph, Ji, Jj, b, damping, cg_iterations, cg_tol):
 
 
 def _optimize(graph: PoseGraph, boxplus, iterations, cg_iterations, cg_tol,
-              damping_init):
+              damping_init, axis_name=None):
     n = graph.poses.shape[0]
     ei, ej = graph.edge_i, graph.edge_j
 
     def total_cost(poses):
         r = _residuals(graph, poses)
-        return (r * r).sum()
+        return psum((r * r).sum(), axis_name)
 
     poses = graph.poses
     cost = total_cost(poses)
@@ -196,8 +203,10 @@ def _optimize(graph: PoseGraph, boxplus, iterations, cg_iterations, cg_tol,
     for _ in range(iterations):
         active = damping < _DAMPING_STOP
         r, Ji, Jj = _linearize(graph, poses)
-        grad = _seg_sum(_btv(Ji, r), ei, n) + _seg_sum(_btv(Jj, r), ej, n)
-        dx = _cg_solve(graph, Ji, Jj, -grad, damping, cg_iterations, cg_tol)
+        grad = _seg_sum(_btv(Ji, r), ei, n, axis_name) + \
+            _seg_sum(_btv(Jj, r), ej, n, axis_name)
+        dx = _cg_solve(graph, Ji, Jj, -grad, damping, cg_iterations, cg_tol,
+                       axis_name)
         dx = torch.where(graph.fixed[:, None], 0.0, dx)
         poses_new = boxplus(poses, dx)               # manifold retraction
         cost_new = total_cost(poses_new)
@@ -213,15 +222,20 @@ def _optimize(graph: PoseGraph, boxplus, iterations, cg_iterations, cg_tol,
 
 def optimize_pose_graph(graph: PoseGraph, iterations: int = 20,
                         cg_iterations: int = 64, cg_tol: float = 1e-6,
-                        damping_init: float = 1e-4) -> PoseGraph:
-    """Levenberg-Marquardt on the SE(3) graph where its tensors lie."""
+                        damping_init: float = 1e-4,
+                        axis_name=None) -> PoseGraph:
+    """Levenberg-Marquardt on the SE(3) graph where its tensors lie.
+    Distributed, the edges are this rank's shard and `axis_name` the
+    process group of the shards; the poses are replicated."""
     return _optimize(graph, lie.boxplus, iterations, cg_iterations, cg_tol,
-                     damping_init)
+                     damping_init, axis_name)
 
 
 def optimize_pose_graph_sim3(graph: Sim3Graph, iterations: int = 20,
                              cg_iterations: int = 64, cg_tol: float = 1e-6,
-                             damping_init: float = 1e-4) -> Sim3Graph:
-    """Levenberg-Marquardt on the Sim(3) graph where its tensors lie."""
+                             damping_init: float = 1e-4,
+                             axis_name=None) -> Sim3Graph:
+    """Levenberg-Marquardt on the Sim(3) graph where its tensors lie
+    (distributed as `optimize_pose_graph`)."""
     return _optimize(graph, sim3.boxplus, iterations, cg_iterations, cg_tol,
-                     damping_init)
+                     damping_init, axis_name)

@@ -125,6 +125,8 @@ def test_import_pulls_in_no_jax():
             "import sift_tpu_torch.serve, sift_tpu_torch.matching.ann\n"
             "import sift_tpu_torch.io.checkpoint, sift_tpu_torch.io.native\n"
             "import sift_tpu_torch.utils.debug\n"
+            "import sift_tpu_torch.dist, sift_tpu_torch.dist.failure\n"
+            "from sift_tpu_torch.dist import *\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'orbax',\n"
             "                                       'sift_tpu')\n"
             "       or m.startswith(('jax.', 'jaxlib', 'flax.', 'orbax.',\n"
@@ -155,9 +157,19 @@ def test_pallas_off_refused_on_the_card(monkeypatch):
 
 @pytest.mark.parametrize("kw", [{"extrema_topk": "approx"}])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        extract_batch(np.zeros((1, 32, 32), np.float32), SiftConfig(**kw),
-                      device="cpu")
+    """Every option of the JAX package is ported now, this last one too
+    ("approx" selects exactly, as JAX's `approx_max_k` does off the TPU),
+    and no module of the port raises `NotImplementedError`."""
+    imgs = np.zeros((1, 32, 32), np.float32)
+    kp = extract_batch(imgs, SiftConfig(**kw), device="cpu")
+    assert kp.valid.shape == (1, SiftConfig().max_keypoints)
+    assert not kp.valid.any()
+    pkg = os.path.dirname(sift_tpu_torch.__file__)
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    assert "NotImplementedError" not in f.read(), name
 
 
 @pytest.mark.parametrize("kw", [{"mode": "parity"}, {"subpixel": True},
@@ -180,11 +192,10 @@ def test_parity_and_subpixel_need_the_card(monkeypatch, kw):
 
 
 def test_top_level_exports_match_jax():
-    """Every name of `sift_tpu.__all__` but `MeshConfig` (dist/ is not
-    ported)."""
+    """Every name of `sift_tpu.__all__`."""
     import sift_tpu
     missing = set(sift_tpu.__all__) - set(sift_tpu_torch.__all__)
-    assert missing == {"MeshConfig"}
+    assert missing == set()
     for name in sift_tpu_torch.__all__:
         assert hasattr(sift_tpu_torch, name), name
     from sift_tpu_torch import PipelineConfig as Exported

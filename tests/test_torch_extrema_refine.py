@@ -27,6 +27,7 @@ from sift_tpu.kernels.pallas.refine import refine_walk_pallas
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.frontend.extrema import detect_extrema_octave as port_detect
 from sift_tpu_torch.frontend.refine import refine_octave_lowe
+from sift_tpu_torch.frontend.sift import extract_batch
 from sift_tpu_torch.kernels.cuda.refine import refine_walk_patches_plain
 
 
@@ -84,6 +85,33 @@ def test_extrema_cap_and_ties(L):
             for o in range(2)]
     kw = dict(max_keypoints_per_octave=64, dogs_per_epoch=L, octaves=2)
     assert _check_extrema(dogs, JaxSiftConfig(**kw), SiftConfig(**kw)) > 0
+
+
+@pytest.mark.parametrize("L", [3, 5])
+def test_extrema_approx_bit_exact(L):
+    """extrema_topk="approx": the JAX package's `lax.approx_max_k` selects
+    exactly off the TPU and the port selects exactly, so both pick the same
+    slots, bit for bit, on the cap-and-ties input and on a pyramid; and the
+    port's whole extraction is the same as under "exact"."""
+    rng = np.random.default_rng(L)
+    dogs = [rng.integers(-40, 41, (2, L, 64 >> o, 80 >> o)).astype(np.float32)
+            for o in range(2)]
+    kw = dict(max_keypoints_per_octave=64, dogs_per_epoch=L, octaves=2,
+              extrema_topk="approx")
+    assert _check_extrema(dogs, JaxSiftConfig(**kw), SiftConfig(**kw)) > 0
+    jcfg, cfg, dogs = _jax_case(L, dogs_per_epoch=L, extrema_topk="approx")
+    _check_extrema(dogs, jcfg, cfg)
+    img = ndi.uniform_filter(rng.uniform(0, 255, (96, 128)), 5)
+    imgs = ((img - img.min()) / (img.max() - img.min()) * 255.0)[None]
+    approx = extract_batch(imgs.astype(np.float32), cfg,
+                           device="cpu").to_numpy()
+    exact = extract_batch(imgs.astype(np.float32),
+                          cfg.replace(extrema_topk="exact"),
+                          device="cpu").to_numpy()
+    assert approx.valid.sum() > 20
+    for f in ("x", "y", "octave", "level", "scale", "orientation", "valid",
+              "desc"):
+        np.testing.assert_array_equal(getattr(approx, f), getattr(exact, f))
 
 
 def _refine_both(seed, pallas, **kw):

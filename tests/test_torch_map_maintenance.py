@@ -1,8 +1,9 @@
 """Map maintenance in the port's `SfmPipeline` against the JAX package's
 on the CPU: landmark fusion and compaction (the cases of
 `tests/unit/test_landmark_fusion.py` and a random one, array for array),
-a map the JAX package wrote (loaded bit for bit), full-map BA on it (the
-RMSE within GBA_RTOL of JAX's), keyframe culling on it (the same
+a map the JAX package wrote (loaded bit for bit), full-map BA on it, on
+one device and on a one-rank process mesh (the RMSE within GBA_RTOL of
+JAX's), keyframe culling on it (the same
 keyframes, edges, anchors and ids as JAX, then tracking on, as
 `tests/e2e/test_sfm_pipeline.py::test_keyframe_culling_keeps_tracking`),
 save -> load -> continue on the port, and periodic compaction
@@ -250,7 +251,7 @@ def test_jax_map_loads_bit_for_bit(jax_map):
                        torch.Generator().manual_seed(0).get_state())
 
 
-def test_global_ba_on_jax_map_matches_jax(jax_map):
+def test_global_ba_on_jax_map_matches_jax(jax_map, tmp_path):
     jp, pp = _loaded(jax_map[1])
     want = jp.run_global_ba()
     got = pp.run_global_ba()
@@ -259,8 +260,23 @@ def test_global_ba_on_jax_map_matches_jax(jax_map):
     assert got["rmse"] == pytest.approx(want["rmse"], rel=GBA_RTOL)
     for kj, kp in zip(jp.keyframes, pp.keyframes):
         np.testing.assert_allclose(kp.pose, kj.pose, atol=1e-3)
-    with pytest.raises(NotImplementedError, match="dist/"):
-        pp.run_global_ba(mesh=object())
+    # On a process mesh (a one-rank gloo world in this process) the same
+    # map gives the same result: a one-rank all-reduce is the identity.
+    from sift_tpu_torch.dist import make_mesh
+    from sift_tpu_torch.dist.mesh import init_distributed
+    _, pm = _loaded(jax_map[1])
+    init_distributed("cpu", f"file://{tmp_path / 'store'}", 0, 1)
+    try:
+        with torch_threads():
+            meshed = pm.run_global_ba(mesh=make_mesh())
+    finally:
+        torch.distributed.destroy_process_group()
+    assert {k: meshed[k] for k in ("n_obs", "n_cams", "n_lms")} == \
+        {k: want[k] for k in ("n_obs", "n_cams", "n_lms")}
+    assert meshed["rmse"] == pytest.approx(want["rmse"], rel=GBA_RTOL)
+    assert meshed["rmse"] == pytest.approx(got["rmse"], rel=GBA_RTOL)
+    for kj, kp in zip(jp.keyframes, pm.keyframes):
+        np.testing.assert_allclose(kp.pose, kj.pose, atol=1e-3)
 
 
 def test_cull_keyframes_matches_jax_and_keeps_tracking(world, jax_map):

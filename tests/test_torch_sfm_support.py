@@ -2,11 +2,11 @@
 the CPU: the copied evaluation, trajectory export and metrics modules
 (bit-equal outputs), the dataset loaders on the checked-in TUM and KITTI
 fixtures (equal arrays), the global descriptor index (equal votes and
-candidates), and the options the port refuses (`NotImplementedError`
-naming the option)."""
+candidates), and the arguments the port refuses (naming them)."""
 
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -226,19 +226,25 @@ def test_global_index_add_is_in_place_and_capped():
                                np.full((4, 8), 8 ** -0.5), rtol=4e-3)
 
 
-@pytest.mark.parametrize("kw,name", [({"mesh": object()}, "mesh")])
+@pytest.mark.parametrize("kw,name", [
+    ({"mesh": types.SimpleNamespace(device_type="cuda")}, "mesh")])
 def test_refused_constructor_arguments(kw, name):
-    with pytest.raises(NotImplementedError, match=name):
+    """A process mesh is taken (`dist/`); one on another device type than
+    the pipeline's is refused, naming it."""
+    with pytest.raises(ValueError, match=name):
         SfmPipeline(INTR, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("method", ["run_global_ba"])
 def test_refused_methods(method):
-    """The map-maintenance methods run; only a sharded global BA
-    (`mesh=`, dist/) is refused."""
+    """No map-maintenance method is refused: a sharded global BA
+    (`mesh=`, dist/) runs too, and on a map of fewer than two keyframes
+    returns at once, as on one device (the sharded solve itself:
+    tests/test_torch_dist_pipeline.py)."""
     pipe = SfmPipeline(INTR, device="cpu")
-    with pytest.raises(NotImplementedError, match="dist/"):
-        getattr(pipe, method)(mesh=object())
+    mesh = types.SimpleNamespace(device_type="cpu")
+    assert getattr(pipe, method)(mesh=mesh) == getattr(pipe, method)() == \
+        dict(rmse=0.0, n_obs=0, n_cams=0, n_lms=0)
 
 
 def test_pipeline_needs_the_card_unless_told(monkeypatch):
