@@ -158,7 +158,7 @@ Phases, each fatal on failure:
      image identical in every slot; six images co-batched against a
      window-0 service (valid equal, x within 1e-4, descriptors within one
      q8 step; bit equality printed); `extract_batch` of a frame at B=1
-     against B=8 (printed: why the service extracts at one batch size);
+     against B=8 (printed);
      requests/s, mean batch, /stats phases and a profiled co-batched
      dispatch's busy share; (c) a
      service at 2400x3200 and 8192 keypoints matches phase 6's pair
@@ -192,13 +192,29 @@ Phases, each fatal on failure:
      call of (a), (b) and (e) is held against its plain version; ms of a
      sharded extraction batch and of a sharded 8192^2 match beside the
      single-device calls'.
+  16. (run right after phase 6, for the profiler's sake) the blur kernel
+     (`csrc/blur.cu`; it replaces no TPU kernel) and
+     extraction independent of the batch: (a) every blur call of phase
+     5's batch, 13c's subpixel batch, phase 6's pair and 13b's parity
+     frame, and tiny planes whose radius reaches past their size, against
+     the plain stencil bit for bit; (b) `extract_batch` of phase 5's
+     frames at B = 1, 2 and 4 against B = 8, every field bit for bit
+     (NaN-equal), in lowe, lowe with `subpixel` and parity; (c) phase 5's
+     batch card against the CPU (images equal in every bit printed; phase
+     5's criteria on every image); (d) the blur's CUPTI ms, launches,
+     bound, plain ms and library ms (reflect pad + 2-D convolution) per
+     batch and per pair, beside phase 5's kf/s and phase 6's pairs/s.
+Every path's launch counts are read by `hold_launches`: the four TPU
+kernels' ports exactly as each phase expects, and the blur at least once
+on every path that extracts.
 Then it prints one `kernels` JSON line (with each kernel's launches on
 the twoview path as `launches_twoview`, on phase 9b's sequence as
 `launches_sfm`, on phase 10a's as `launches_loop`, on phase 11a's as
 `launches_chunked`, on phase 12b's as `launches_stereo` and on phase
 13c's as `launches_subpixel`, with 13c's times as `*_subpixel`, and on
 phase 14a's three requests and 14c's match as `launches_serve`, and on
-phase 15's dist paths (a), (b) and (e) as `launches_dist`), the card
+phase 15's dist paths (a), (b) and (e) as `launches_dist`; the blur's
+row last, its times per phase 5 batch and per phase 6 pair), the card
 line, and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
@@ -218,6 +234,16 @@ import sys
 import time
 
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+try:
+    from sift_tpu_torch.utils.roofline import bound_ms as bound
+    from sift_tpu_torch.utils.roofline import (covered_cells, kernel_work,
+                                               walk_cells)
+    from sift_tpu_torch.utils.timing import busy_share, event_ms, kernel_ms
+    _PORT_MISSING = None
+except ImportError as _e:       # reported by main(), after the CUDA check
+    _PORT_MISSING = _e
 
 BATCH, HEIGHT, WIDTH = 8, 488, 600
 EXPECTED_LAUNCHES = {"gather_windows": 4, "refine_walk": 4,
@@ -239,18 +265,11 @@ SOURCES = {
     "streaming_top2": ("sift_tpu_torch/csrc/match.cu",
                        "sift_tpu/kernels/pallas/match.py:106"),
 }
+EXTRACTION_KERNELS = ("gather_windows", "refine_walk", "descriptor_accumulate")
 KERNEL_SYMBOLS = {"gather_windows": "gather_windows_kernel",
                   "refine_walk": "refine_walk_kernel",
-                  "descriptor_accumulate": "descriptor_kernel"}
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32
-# (non-tensor-core) FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-# f32 operations per window pixel of the descriptor pass, both peaks:
-# magnitude + angle ~20 (atan2 counted as ~12), and per peak: u, v 6,
-# Gaussian weight 6, orientation bins 10, tents 16, and 2x2 cells x 2 bins
-# x 3 (product, weight, add) = 24 for the non-zero votes -> 20 + 2*62.
-DESC_OPS_PER_PIXEL = 144
+                  "descriptor_accumulate": "descriptor_kernel",
+                  "blur": "blur_pass_kernel"}
 OUT_DIR = "chiprun_out"
 # (K, d) of the descriptor's random edge cases: d = 16, 30 and 48 (any
 # even d = 2 * min(24, H // 2, W // 2) reaches the kernel), one keypoint,
@@ -443,6 +462,15 @@ DIST_LAUNCHES = {
     "sfm": {"gather_windows": 24, "refine_walk": 24,
             "descriptor_accumulate": 24, "streaming_top2": 0}}
 DIST_REPS = 3
+# Phase 16: the blur kernel. (shape, sigma) of tiny planes whose radius
+# (round(3 sigma)) reaches past their size, so the mirror index folds more
+# than once; n == 1 included.
+BLUR_TINY = [((3, 1, 5), 4.0), ((2, 4, 3), 2.5), ((1, 2, 1), 1.6),
+             ((2, 7, 6), 6.0), ((1, 1, 1), 1.0)]
+BLUR_REPLACES = ("none: sift_tpu/kernels/gaussian.py:72,128 blurs by XLA's "
+                 "conv_general_dilated or einsum (no pallas_call)")
+KP_FIELDS = ("x", "y", "octave", "level", "scale", "score", "orientation",
+             "valid", "desc", "n_dropped", "n_cand_pruned")
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -468,6 +496,17 @@ def make_textured(h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
               for dx in range(5)) / 25.0
     img = (img - img.min()) / (img.max() - img.min()) * 255.0
     return img.astype(np.float32)[None]
+
+
+def parity_frame(torch) -> np.ndarray:
+    """Phase 13b's 488x600 parity frame: `make_textured` at 1/PARITY_ZOOM
+    size zoomed bilinearly (the full-rate texture has over 20480
+    candidates an octave and truncates)."""
+    import torch.nn.functional as F
+    small = torch.from_numpy(make_textured(HEIGHT // PARITY_ZOOM + 1,
+                                           WIDTH // PARITY_ZOOM + 1))
+    return F.interpolate(small[None], size=(HEIGHT, WIDTH), mode="bilinear",
+                         align_corners=True)[0, 0].numpy()
 
 
 def make_sfm_sequence(n: int = SFM_FRAMES, h: int = SFM_H, w: int = SFM_W,
@@ -630,141 +669,31 @@ def hold_syncs(torch, fn, label: str) -> int:
     return len(sites)
 
 
+def hold_launches(label: str, launches: dict, expected: dict) -> None:
+    """The ports of the four TPU kernels launched exactly `expected` times
+    on path `label`; and where the path extracts (launches an extraction
+    kernel), the blur, which every pyramid runs, at least once."""
+    extracts = any(expected[k] for k in EXTRACTION_KERNELS)
+    if {k: launches[k] for k in expected} != expected or \
+            (extracts and not launches["blur"]):
+        raise Failed(f"{label} launch counts {launches} != {expected}"
+                     + (" with at least one blur" if extracts else ""))
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     return 1
 
 
-def event_ms(torch, fn, reps: int) -> float:
-    """Mean stream time per call, CUDA events around `reps` calls."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(torch, fn, reps: int, kernel_name):
-    """Mean device time per call of the CUDA kernels whose name contains
-    `kernel_name` (a string, or a tuple of strings), from the profiler's
-    CUPTI trace; None if the trace shows no device time."""
-    names = (kernel_name,) if isinstance(kernel_name, str) else kernel_name
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if any(n in ev.key for n in names):
-            total_us += getattr(ev, "device_time_total",
-                                getattr(ev, "cuda_time_total", 0.0))
-    return total_us / reps / 1e3 if total_us > 0 else None
-
-
 def profile_busy(torch, fn, table_name: str, card: str):
-    """Run `fn` (which ends synchronised) once under the profiler; write the
-    operator table to OUT_DIR/table_name and return (device busy ms, wall
-    ms). Busy time sums the kernels' own events only (the operator rows
-    repeat their kernels' time)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    table = events.table(sort_by="device_time_total", row_limit=40)
+    """Run `fn` (which ends synchronised) once under the profiler
+    (`timing.busy_share`); write the operator table to OUT_DIR/table_name
+    and return (device busy ms, wall ms)."""
+    busy_ms, wall_ms, table = busy_share(fn)
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, OUT_DIR, table_name), "w") as fh:
         fh.write(f"card: {card}\n{table}\n")
-    busy_us = sum(getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))
-                  for ev in events
-                  if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return busy_us / 1e3, wall * 1e3
-
-
-def bound(nbytes: float, nops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def covered_cells(dogs, x, y) -> int:
-    """DoG cells, all levels, that at least one keypoint's 16x16 patch of
-    the refine walk covers: the patch corners box-dilated by 16 toward the
-    bottom right, clipped to the image. What the kernel stages, printed
-    beside what the walks read (`walk_cells`)."""
-    import torch
-    import torch.nn.functional as F
-    from sift_tpu_torch.kernels.cuda.refine import D, patch_corners
-    B, L, H, W = dogs.shape
-    _, _, x0, y0 = patch_corners(x, y, H, W)
-    corners = torch.zeros((B, 1, H, W), device=dogs.device)
-    img = torch.arange(B, device=dogs.device)[:, None].expand_as(x0)
-    corners[img, 0, y0.long(), x0.long()] = 1.0
-    cover = F.max_pool2d(F.pad(corners, (D - 1, 0, D - 1, 0)), D, stride=1)
-    return int(cover.sum()) * L
-
-
-def walk_cells(dogs, x, y, level) -> int:
-    """DoG cells that the refine walks read, each counted once: the plain
-    walk (`refine._walk`) runs with a lookup that records the flat index of
-    every tap it reads inside the image (taps past the image's edge read
-    0, not memory)."""
-    import torch
-    from sift_tpu_torch.kernels.cuda import refine as rk
-    B, L, H, W = dogs.shape
-    _, _, x0, y0 = (t.reshape(-1, 1, 1, 1).long()
-                    for t in rk.patch_corners(x, y, H, W))
-    img = torch.arange(B, device=dogs.device).repeat_interleave(
-        x.shape[1]).reshape(-1, 1, 1, 1)
-    read = []
-    walk = rk._walk
-
-    def recording_walk(lookup, *args):
-        def recorded(li, ly, lx):
-            s, cell, inside = rk._cells(li, ly, lx)
-            yy, xx = y0 + cell // rk.D, x0 + cell % rk.D
-            ok = inside & (yy < H) & (xx < W)
-            idx = ((img * L + s) * H + yy) * W + xx
-            read.append(idx.expand_as(ok)[ok])
-            return lookup(li, ly, lx)
-        return walk(recorded, *args)
-
-    rk._walk = recording_walk
-    try:
-        rk.refine_walk_plain(dogs, x, y, level)
-    finally:
-        rk._walk = walk
-    return int(torch.unique(torch.cat(read)).numel())
-
-
-def work_of(name: str, args) -> tuple[float, float]:
-    """(bytes, f32 ops) that one call must move and do on these inputs."""
-    if name == "gather_windows":
-        maps, gl, y0, x0, d = args
-        K, C = gl.shape[0], maps.shape[0]
-        return K * C * d * d * (maps.element_size() + 4) + K * 12, 0.0
-    if name == "refine_walk":
-        N = args[1].numel()
-        return walk_cells(*args) * 4 + N * (12 + 27 * 4 + 16), N * 6 * 150.0
-    if name == "streaming_top2":
-        a, _, b, _ = args
-        (Na, D), Nb = a.shape, b.shape[0]
-        return (Na + Nb) * (D * 4 + 1) + Na * 12, 2.0 * Na * Nb * D
-    wins, scal = args
-    K, _, d, _ = wins.shape
-    return (K * (2 * d * d * 4 + scal.shape[1] * 4 + 2 * 128 * 4),
-            K * d * d * float(DESC_OPS_PER_PIXEL))
+    return busy_ms, wall_ms
 
 
 def match_keypoints(a, b, i: int):
@@ -1129,8 +1058,7 @@ def match_phase(torch, card: str):
         launches = kcuda.launch_counts()
     recorded, original = calls.pop("streaming_top2"), originals["streaming_top2"]
     print(f"phase 6 launches: {launches}", flush=True)
-    if launches != MATCH_LAUNCHES:
-        raise Failed(f"phase 6 launch counts {launches} != {MATCH_LAUNCHES}")
+    hold_launches("phase 6", launches, MATCH_LAUNCHES)
 
     n_kp = kp.count().tolist()
     n_match, n_in = int(m.count()), int(est.num_inliers)
@@ -1170,12 +1098,12 @@ def match_phase(torch, card: str):
                              f"launches at {tuple(args[0].shape)}")
             if name in timed:
                 t = timed[name]
-                dev = device_ms(torch, lambda: kern(*args), 10,
-                                KERNEL_SYMBOLS[name])
+                dev = kernel_ms(lambda: kern(*args), KERNEL_SYMBOLS[name],
+                                10)
                 t["device_seen"] &= dev is not None
                 t["ms"] += dev or 0.0
-                t["ms_stream"] += event_ms(torch, lambda: kern(*args), 10)
-                b, o = work_of(name, args)
+                t["ms_stream"] += event_ms(lambda: kern(*args), 10)
+                b, o = kernel_work(name, args)
                 t["bytes"] += b
                 t["ops"] += o
                 if name == "refine_walk":
@@ -1240,12 +1168,12 @@ def match_phase(torch, card: str):
         torch.cuda.synchronize()
         err, rows, ties = top2_check(torch, mk, got, want, args)
         reps = 10
-        stream = event_ms(torch, lambda: original(*args), reps)
-        dev = device_ms(torch, lambda: original(*args), reps,
-                        ("top2_kernel", "merge_kernel"))
-        plain = event_ms(torch, lambda: mk.streaming_top2_plain(*args), 3)
-        lib = event_ms(torch, lambda: top2_masked(*args, dense), 3)
-        b, o = work_of("streaming_top2", args)
+        stream = event_ms(lambda: original(*args), reps)
+        dev = kernel_ms(lambda: original(*args),
+                        ("top2_kernel", "merge_kernel"), reps)
+        plain = event_ms(lambda: mk.streaming_top2_plain(*args), 3)
+        lib = event_ms(lambda: top2_masked(*args, dense), 3)
+        b, o = kernel_work("streaming_top2", args)
         bms, _ = bound(b, o)
         print(f"streaming_top2 {label} {tuple(args[0].shape)}x"
               f"{tuple(args[2].shape)}: ok, max_abs_err {err:.3g}, {rows} "
@@ -1433,8 +1361,7 @@ def twoview_phase(torch, card: str) -> dict:
     torch.cuda.synchronize()
     launches = kcuda.launch_counts()
     print(f"phase 7 launches: {launches}", flush=True)
-    if launches != TWOVIEW_LAUNCHES:
-        raise Failed(f"phase 7 launch counts {launches} != {TWOVIEW_LAUNCHES}")
+    hold_launches("phase 7", launches, TWOVIEW_LAUNCHES)
 
     R_gt, t_gt = tum_relative_pose(here)
     n_match, n_in = int(m.count()), int(est.num_inliers)
@@ -1583,7 +1510,7 @@ def ba_case(torch, card: str, label: str, scene: dict, cfg, cpu_iters: int):
         p = torch.randn((C, 6), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(0))
         out["ms_per_cg_matvec"] = event_ms(
-            torch, lambda: schur_matvec(system, p), 20)
+            lambda: schur_matvec(system, p), 20)
         msg += f", {out['ms_per_cg_matvec']:.4f} ms per CG matvec"
     print(f"{label}: {msg} (CUDA events, {cfg.max_iterations} LM iterations, "
           f"all executed); card {card}", flush=True)
@@ -1650,9 +1577,7 @@ def sfm_cli_phase(torch, here: str) -> dict:
         raise Failed(f"cli sfm trajectory has shape {rows.shape}")
     if ate >= SFM_CLI_ATE:
         raise Failed(f"cli sfm ATE {ate} m >= {SFM_CLI_ATE} m")
-    if launches != SFM_CLI_LAUNCHES:
-        raise Failed(f"phase 9a launch counts {launches} != "
-                     f"{SFM_CLI_LAUNCHES}")
+    hold_launches("phase 9a", launches, SFM_CLI_LAUNCHES)
     return launches
 
 
@@ -1768,8 +1693,7 @@ def sfm_phase(torch, card: str) -> tuple:
         raise Failed(f"sfm ATE {ate} m against JAX's {SFM_JAX_ATE} m")
     if abs(n_kf - SFM_JAX_KEYFRAMES) > 0.2 * SFM_JAX_KEYFRAMES:
         raise Failed(f"sfm made {n_kf} keyframes, JAX {SFM_JAX_KEYFRAMES}")
-    if launches != SFM_LAUNCHES:
-        raise Failed(f"phase 9b launch counts {launches} != {SFM_LAUNCHES}")
+    hold_launches("phase 9b", launches, SFM_LAUNCHES)
 
     # Relocalization on the card (no frame of the sequence loses
     # tracking): a keyframe's own keypoints against the keyframes the
@@ -2066,8 +1990,7 @@ def loop_phase(torch, card: str) -> tuple:
                      f"{LOOP_JAX_ATE} m")
     if not np.isfinite(gba["rmse"]) or gba["n_cams"] != n_kf:
         raise Failed(f"global BA {gba}")
-    if launches != LOOP_LAUNCHES:
-        raise Failed(f"phase 10a launch counts {launches} != {LOOP_LAUNCHES}")
+    hold_launches("phase 10a", launches, LOOP_LAUNCHES)
     plain = extraction_plain()
     errs = {}
     for name, calls in first_chunk.items():
@@ -2250,7 +2173,7 @@ def chunk_stage_check(torch, pipe, calls: list, card: str) -> dict:
         torch.cuda.set_sync_debug_mode("default")
     second = stage(noise, *args[1:])
     same = all(torch.equal(a, b) for a, b in zip(first, second))
-    ms = event_ms(torch, lambda: stage(noise, *args[1:]), 2)
+    ms = event_ms(lambda: stage(noise, *args[1:]), 2)
     # The promotion slot's `_kf_track`, which runs whether the slot fires
     # or not: its host time inside one more run of the stage (the stage is
     # host-bound; phase 11c's busy share).
@@ -2369,9 +2292,7 @@ def chunked_phase(torch, card: str) -> tuple:
         raise Failed(f"chunk_stats {pipe.chunk_stats}, JAX {CHUNK_JAX_STATS}")
     if ate > max(1.5 * CHUNK_JAX_ATE, CHUNK_JAX_ATE + 0.01):
         raise Failed(f"chunked ATE {ate} m against JAX's {CHUNK_JAX_ATE} m")
-    if launches != CHUNK_LAUNCHES:
-        raise Failed(f"phase 11a launch counts {launches} != "
-                     f"{CHUNK_LAUNCHES}")
+    hold_launches("phase 11a", launches, CHUNK_LAUNCHES)
     errs = hold_first_chunk(torch, "phase 11a", first, originals)
     del first
 
@@ -2396,9 +2317,7 @@ def chunked_phase(torch, card: str) -> tuple:
             pipe16.state != "tracking":
         raise Failed(f"batch 16 ATE {ate16} m against JAX's "
                      f"{CHUNK16_JAX_ATE} m")
-    if launches16 != CHUNK16_LAUNCHES:
-        raise Failed(f"phase 11b launch counts {launches16} != "
-                     f"{CHUNK16_LAUNCHES}")
+    hold_launches("phase 11b", launches16, CHUNK16_LAUNCHES)
 
     # (c) extract_ahead off on the first CHUNK_AHEAD_FRAMES frames: their
     # positions bit-identical to (a)'s (a frame's record is final once
@@ -2466,9 +2385,7 @@ def stereo_phase(torch, card: str) -> tuple:
           f"{STEREO_CLI_ATE}), launches {launches_cli}", flush=True)
     if not ok or not ate_cli < STEREO_CLI_ATE:
         raise Failed(f"cli sfm --stereo: rc {rc}, ATE {ate_cli}")
-    if launches_cli != STEREO_CLI_LAUNCHES:
-        raise Failed(f"phase 12a launch counts {launches_cli} != "
-                     f"{STEREO_CLI_LAUNCHES}")
+    hold_launches("phase 12a", launches_cli, STEREO_CLI_LAUNCHES)
 
     xs = [SFM_STEP * i for i in range(STEREO_FRAMES)]
     frames, gt = make_sfm_sequence(xs=xs + [x + STEREO_BASELINE for x in xs])
@@ -2512,9 +2429,7 @@ def stereo_phase(torch, card: str) -> tuple:
                      f"{STEREO_JAX_KEYFRAMES}")
     if ate > max(1.5 * STEREO_JAX_ATE, STEREO_JAX_ATE + 0.01):
         raise Failed(f"stereo ATE {ate} m against JAX's {STEREO_JAX_ATE} m")
-    if launches != STEREO_LAUNCHES:
-        raise Failed(f"phase 12b launch counts {launches} != "
-                     f"{STEREO_LAUNCHES}")
+    hold_launches("phase 12b", launches, STEREO_LAUNCHES)
     errs = hold_first_chunk(torch, "phase 12b", first, originals)
     del first
 
@@ -2522,7 +2437,7 @@ def stereo_phase(torch, card: str) -> tuple:
     kp_l, kp_r = pairs[0]
     fx = float(SFM_INTRINSICS[0])
     card_z = stereo_depths_batch(kp_l, kp_r, fx, STEREO_BASELINE)
-    ms = event_ms(torch, lambda: stereo_depths_batch(kp_l, kp_r, fx,
+    ms = event_ms(lambda: stereo_depths_batch(kp_l, kp_r, fx,
                                                      STEREO_BASELINE), 10)
     cpu_z = stereo_depths_batch(kp_l.map(lambda t: t.cpu()),
                                 kp_r.map(lambda t: t.cpu()), fx,
@@ -2616,7 +2531,6 @@ def parity_phase(torch, card: str) -> tuple:
     timing at the subpixel shapes})."""
     import io
     import tempfile
-    import torch.nn.functional as F
     from sift_tpu_torch import SiftConfig, cli, extract, extract_batch
     from sift_tpu_torch.frontend import parity
     from sift_tpu_torch.io.image import load_image_gray, save_image_gray
@@ -2645,10 +2559,7 @@ def parity_phase(torch, card: str) -> tuple:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     # (b) parity at full width through the command
-    small = torch.from_numpy(make_textured(HEIGHT // PARITY_ZOOM + 1,
-                                           WIDTH // PARITY_ZOOM + 1))
-    frame = F.interpolate(small[None], size=(HEIGHT, WIDTH), mode="bilinear",
-                          align_corners=True)[0, 0].numpy()
+    frame = parity_frame(torch)
     cfg = SiftConfig(mode="parity", max_keypoints_per_octave=PARITY_CAPS[0],
                      max_keypoints=PARITY_CAPS[1])
     with tempfile.TemporaryDirectory() as tmp:
@@ -2736,9 +2647,7 @@ def parity_phase(torch, card: str) -> tuple:
         torch, lambda: extract_batch(frames, cfg))
     print(f"phase 13c launches: {launches} ({secs:.3f} s, first run)",
           flush=True)
-    if launches != EXPECTED_LAUNCHES:
-        raise Failed(f"phase 13c launch counts {launches} != "
-                     f"{EXPECTED_LAUNCHES}")
+    hold_launches("phase 13c", launches, EXPECTED_LAUNCHES)
     errs = hold_first_chunk(torch, "phase 13c", first, originals)
     timing = {}
     plain = extraction_plain()
@@ -2746,13 +2655,13 @@ def parity_phase(torch, card: str) -> tuple:
         ms = ms_stream = plain_ms = nbytes = nops = 0.0
         seen = True
         for args in calls:
-            ms_stream += event_ms(torch, lambda: originals[name](*args), 20)
-            dev = device_ms(torch, lambda: originals[name](*args), 20,
-                            KERNEL_SYMBOLS[name])
+            ms_stream += event_ms(lambda: originals[name](*args), 20)
+            dev = kernel_ms(lambda: originals[name](*args),
+                            KERNEL_SYMBOLS[name], 20)
             seen = seen and dev is not None
             ms += dev or 0.0
-            plain_ms += event_ms(torch, lambda: plain[name](*args), 3)
-            b, o = work_of(name, args)
+            plain_ms += event_ms(lambda: plain[name](*args), 3)
+            b, o = kernel_work(name, args)
             nbytes, nops = nbytes + b, nops + o
         bound_ms, bound_by = bound(nbytes, nops)
         timing[name] = {"ms": ms if seen else ms_stream,
@@ -2957,7 +2866,7 @@ def serve_phase(torch, card: str, window_state, boot_calls) -> tuple:
     grays = [serve._decode_image(b) for b in b64s]
     pair = [b64s[names.index(f"{s}.png")] for s in TUM_PAIR]
     phase_t0 = time.perf_counter()
-    launches_serve = {k: 0 for k in MATCH_LAUNCHES}
+    launches_serve = dict.fromkeys(kcuda.launch_counts(), 0)
     errs = {}
 
     # (a) the service at `python -m sift_tpu_torch.serve`'s defaults
@@ -2995,9 +2904,7 @@ def serve_phase(torch, card: str, window_state, boot_calls) -> tuple:
                         launches_serve[k] += launches[k]
                     print(f"phase 14a {path}: {secs * 1e3:.3f} ms (first "
                           f"request), launches {launches}", flush=True)
-                    if launches != expected:
-                        raise Failed(f"phase 14a {path} launch counts "
-                                     f"{launches} != {expected}")
+                    hold_launches(f"phase 14a {path}", launches, expected)
                 served_calls = {k: list(v) for k, v in calls.items()}
             syncs = {}
             for path, payload, _ in requests:
@@ -3102,8 +3009,9 @@ def serve_phase(torch, card: str, window_state, boot_calls) -> tuple:
             if bad:
                 raise Failed(f"phase 14b: co-batched and single extraction "
                              f"differ on (image, slots) {bad}")
-            # Why the service pads: `extract_batch` of one image at B=1
-            # against the same image in a batch of 8.
+            # `extract_batch` of one image at B=1 against the same image
+            # in a batch of 8 (phase 16b holds them equal; printed here
+            # on the service's frames).
             frames8 = torch.from_numpy(np.stack(grays[:8])).cuda()
             k8 = extract_batch(frames8, svc.sift).to_numpy()
             same, flips = 0, []
@@ -3163,9 +3071,7 @@ def serve_phase(torch, card: str, window_state, boot_calls) -> tuple:
           f"error median {np.median(err):.4f} px, under 1 px "
           f"{float((err < 1).mean()):.4f}; {secs * 1e3:.3f} ms; launches "
           f"{launches}", flush=True)
-    if launches != SERVE_LARGE_LAUNCHES:
-        raise Failed(f"phase 14c launch counts {launches} != "
-                     f"{SERVE_LARGE_LAUNCHES}")
+    hold_launches("phase 14c", launches, SERVE_LARGE_LAUNCHES)
     if v.sum() < MATCH_FEATURES // 8 or not np.median(err) < 1.0:
         raise Failed("phase 14c: matched coordinates off the homography")
     for label, recorded in (("phase 14a", served_calls),
@@ -3250,14 +3156,14 @@ def serve_phase(torch, card: str, window_state, boot_calls) -> tuple:
     hold_matches_near_ties(torch, "phase 14e IVF nprobe = n_clusters vs the "
                            "exact matcher (streaming kernel)", kps[0], kps[1],
                            mcfg, m_all, m_exact)
-    build_ms = event_ms(torch, lambda: build_ivf(kps[1].desc, kps[1].valid,
+    build_ms = event_ms(lambda: build_ivf(kps[1].desc, kps[1].valid,
                                                  ann, u.cuda()), 3)
-    search_ms = event_ms(torch, lambda: match_descriptors_ann(
+    search_ms = event_ms(lambda: match_descriptors_ann(
         kps[0].desc, kps[0].valid, idx_card, mcfg, ann), 3)
     args_m = (kps[0].desc, kps[0].valid, kps[1].desc, kps[1].valid)
-    dense_ms = event_ms(torch, lambda: match_descriptors(
+    dense_ms = event_ms(lambda: match_descriptors(
         *args_m, mcfg.replace(impl="xla")), 3)
-    stream_ms = event_ms(torch, lambda: match_descriptors(*args_m, mcfg), 3)
+    stream_ms = event_ms(lambda: match_descriptors(*args_m, mcfg), 3)
     print(f"phase 14e {MATCH_FEATURES}x{MATCH_FEATURES}: IVF build "
           f"{build_ms:.3f} ms, IVF search + ratio + mutual {search_ms:.3f} ms; "
           f"exact matcher dense {dense_ms:.3f} ms, streaming kernel "
@@ -3373,7 +3279,8 @@ def dist_phase(torch, card: str, frames_np, pair_kp, ba_scenes) -> tuple:
                                      optimize_pose_graph_sharded,
                                      optimize_pose_graph_sim3_sharded,
                                      run_ba_sharded)
-    from sift_tpu_torch.dist.mesh import init_distributed
+    from sift_tpu_torch.dist.mesh import (init_distributed,
+                                          shutdown_distributed)
     from sift_tpu_torch.kernels import cuda as kcuda
     from sift_tpu_torch.kernels.cuda import match as mk
     from sift_tpu_torch.matching.matcher import match_descriptors
@@ -3402,9 +3309,8 @@ def dist_phase(torch, card: str, frames_np, pair_kp, ba_scenes) -> tuple:
             for name, c in calls.items():
                 held[name].extend(c)
             print(f"phase 15 {label} launches: {launches[label]}", flush=True)
-            if launches[label] != DIST_LAUNCHES[label]:
-                raise Failed(f"phase 15 {label} launch counts "
-                             f"{launches[label]} != {DIST_LAUNCHES[label]}")
+            hold_launches(f"phase 15 {label}", launches[label],
+                          DIST_LAUNCHES[label])
             return out
 
         # (a) sharded extraction against extract_batch
@@ -3577,12 +3483,195 @@ def dist_phase(torch, card: str, frames_np, pair_kp, ba_scenes) -> tuple:
 
         errs = hold_served_kernels(torch, "phase 15", held, originals)
         total = {name: sum(launches[label][name] for label in launches)
-                 for name in targets}
+                 for name in kcuda.launch_counts()}
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
     print(f"phase 15: dist launches {total}, {time.perf_counter() - t_phase:.1f}"
           f" s in all", flush=True)
     return total, errs
+
+
+def bits(a: np.ndarray) -> np.ndarray:
+    """A field as integers: floats by their bit pattern, every NaN made the
+    same NaN (NaN-equal); other types as they are."""
+    if a.dtype.kind != "f":
+        return a
+    return np.where(np.isnan(a), np.float32(np.nan), a).view(np.uint32)
+
+
+def fields_equal(a, b, i: int, j: int) -> list:
+    """The `Keypoints` fields (numpy) in which image i of `a` and image j
+    of `b` differ in any bit (NaN-equal)."""
+    return [f for f in KP_FIELDS if getattr(a, f) is not None and not
+            np.array_equal(bits(getattr(a, f)[i]), bits(getattr(b, f)[j]))]
+
+
+def blur_library(torch, img, taps):
+    """One PyTorch call (after a pad) of the same blur: a 2-D convolution
+    by the outer product of the taps over a reflect pad ("reflect" is the
+    mirror border without the edge repeated). cuDNN, TF32 off."""
+    import torch.nn.functional as F
+    r = (len(taps) - 1) // 2
+    H, W = img.shape[-2:]
+    if r >= min(H, W):
+        raise Failed(f"reflect pad of {r} does not fit a {H}x{W} plane")
+    t = torch.from_numpy(np.asarray(taps, np.float32)).to(img.device)
+    w2 = torch.outer(t, t)[None, None]
+    x = img.reshape(-1, 1, H, W)
+    return lambda: F.conv2d(F.pad(x, (r, r, r, r), mode="reflect"), w2)
+
+
+def blur_phase(torch, card: str, frames_np, main_blurs: int, kf_s: float,
+               pairs_s: float) -> dict:
+    """Phase 16: the blur kernel and extraction independent of the batch.
+    (a) every blur call of phase 5's batch, 13c's subpixel batch, phase
+    6's pair and 13b's parity frame, and tiny planes whose radius reaches
+    past their size, against the plain stencil bit for bit; (b)
+    `extract_batch` of phase 5's frames at B=8 against B=1, 2 and 4, every
+    field bit for bit (NaN-equal), in lowe, lowe with `subpixel` and
+    parity; (c) phase 5's batch on the card against the CPU: images equal
+    in every bit printed, phase 5's criteria held on every image; (d) the
+    blur's time per batch and per pair. Returns the `kernels` line's blur
+    row."""
+    from sift_tpu_torch import SiftConfig, extract_batch
+    from sift_tpu_torch.kernels import cuda as kcuda
+    from sift_tpu_torch.kernels.cuda import blur as bk
+    from sift_tpu_torch.kernels.gaussian import gaussian_kernel_1d
+    t_phase = time.perf_counter()
+    frames = torch.from_numpy(frames_np).cuda()
+    pair = torch.from_numpy(match_pair()[0].copy()).cuda()
+    parity_cfg = SiftConfig(mode="parity",
+                            max_keypoints_per_octave=PARITY_CAPS[0],
+                            max_keypoints=PARITY_CAPS[1])
+    cells = {
+        "batch": (frames, SiftConfig()),
+        "subpixel": (frames, SiftConfig(subpixel=True)),
+        "pair": (pair, SiftConfig(max_keypoints=MATCH_FEATURES,
+                                  max_keypoints_per_octave=MATCH_FEATURES)),
+        "parity": (torch.from_numpy(parity_frame(torch))[None].cuda(),
+                   parity_cfg),
+    }
+
+    # (a) every blur call of each cell against the plain stencil
+    calls, launches = {}, {}
+    for label, (imgs, cfg) in cells.items():
+        with recording({"blur": (bk, "blur")}) as (rec, orig):
+            kcuda.reset_launch_counts()
+            extract_batch(imgs, cfg)
+            torch.cuda.synchronize()
+            launches[label] = kcuda.launch_counts()["blur"]
+        calls[label] = rec["blur"]
+        kern = orig["blur"]
+        for img, taps in calls[label]:
+            if not torch.equal(kern(img, taps), bk.blur_plain(img, taps)):
+                raise Failed(f"phase 16a blur differs from the stencil at "
+                             f"{tuple(img.shape)}, {len(taps)} taps")
+        shapes = sorted({(tuple(a.shape), len(t)) for a, t in calls[label]})
+        print(f"phase 16a {label}: {len(calls[label])} blur calls "
+              f"({launches[label]} launches) bit-identical to the stencil; "
+              f"(shape, taps) {shapes}", flush=True)
+    if launches["batch"] != main_blurs:
+        raise Failed(f"phase 16a: {launches['batch']} blurs a batch, the "
+                     f"main path launched {main_blurs}")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for shape, sigma in BLUR_TINY:
+        img = torch.rand(shape, generator=gen, device="cuda") * 255.0
+        taps = gaussian_kernel_1d(sigma)
+        if not torch.equal(kern(img, taps), bk.blur_plain(img, taps)):
+            raise Failed(f"phase 16a blur differs from the stencil at "
+                         f"{shape}, sigma {sigma}")
+    print(f"phase 16a tiny planes: {len(BLUR_TINY)} of radius >= their "
+          "size bit-identical to the stencil", flush=True)
+
+    # (b) extract_batch at B=8 against B=1, 2 and 4, every field
+    for mode, cfg in (("lowe", SiftConfig()),
+                      ("subpixel", SiftConfig(subpixel=True)),
+                      ("parity", SiftConfig(mode="parity"))):
+        full = extract_batch(frames, cfg).to_numpy()
+        for split in (1, 2, 4):
+            for s in range(0, BATCH, split):
+                part = extract_batch(frames[s:s + split], cfg).to_numpy()
+                for i in range(split):
+                    bad = fields_equal(part, full, i, s + i)
+                    if bad:
+                        raise Failed(f"phase 16b {mode}: image {s + i} at "
+                                     f"B={split} differs from B={BATCH} "
+                                     f"in {bad}")
+        print(f"phase 16b {mode}: all {BATCH} images at B=1, 2 and 4 "
+              f"bit-identical to B={BATCH} in every field "
+              f"({int(full.valid.sum())} valid keypoints)", flush=True)
+
+    # (c) phase 5's batch, card against the CPU
+    card_kp = extract_batch(frames, SiftConfig()).to_numpy()
+    cpu_kp = extract_batch(frames_np, SiftConfig(), device="cpu").to_numpy()
+    same = [i for i in range(BATCH) if not fields_equal(card_kp, cpu_kp, i, i)]
+    worst = (1.0, 1.0, 0.0)
+    for i in range(BATCH):
+        if not (cpu_kp.valid[i].any() or card_kp.valid[i].any()):
+            continue                    # nothing found on either: agree
+        fwd, wf = match_keypoints(cpu_kp, card_kp, i)
+        back, wb = match_keypoints(card_kp, cpu_kp, i)
+        worst = (min(worst[0], fwd), min(worst[1], back),
+                 max(worst[2], wf, wb))
+    print(f"phase 16c card vs CPU, phase 5's batch: {len(same)} of {BATCH} "
+          f"images equal in every bit {same}; matched >= {worst[0]:.4f} / "
+          f"{worst[1]:.4f}, max desc diff {worst[2]:.3g}", flush=True)
+    if min(worst[:2]) < 0.99 or worst[2] > 2e-3:
+        raise Failed("phase 16c: card and CPU disagree on phase 5's batch")
+
+    # (d) the blur's time per batch and per pair
+    t = {}
+    for label in ("batch", "pair"):
+        c = t[label] = {"ms": 0.0, "ms_stream": 0.0, "plain_ms": 0.0,
+                        "library_ms": 0.0, "library_err": 0.0,
+                        "bytes": 0.0, "ops": 0.0}
+        seen = True
+        for img, taps in calls[label]:
+            dev = kernel_ms(lambda: kern(img, taps), KERNEL_SYMBOLS["blur"],
+                            20)
+            seen = seen and dev is not None
+            c["ms"] += dev or 0.0
+            c["ms_stream"] += event_ms(lambda: kern(img, taps), 20)
+            c["plain_ms"] += event_ms(lambda: bk.blur_plain(img, taps), 3)
+            lib = blur_library(torch, img, taps)
+            c["library_ms"] += event_ms(lib, 3)
+            c["library_err"] = max(c["library_err"], float(
+                (lib().reshape(img.shape) - kern(img, taps)).abs().max()))
+            b, o = kernel_work("blur", (img, taps))
+            c["bytes"] += b
+            c["ops"] += o
+        if not seen:
+            c["ms"] = c["ms_stream"]
+        c["timing"] = "cupti" if seen else "events"
+        c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
+        print(f"phase 16d blur per {label}: {launches[label]} launches, "
+              f"{c['ms']:.4f} ms ({c['timing']}), stream "
+              f"{c['ms_stream']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}), plain {c['plain_ms']:.3f} ms, library "
+              f"(reflect pad + conv2d) {c['library_ms']:.3f} ms, within "
+              f"{c['library_err']:.3g} of the kernel; card {card}",
+              flush=True)
+    print(f"phase 16d: phase 5 {kf_s:.2f} kf/s, phase 6 {pairs_s:.3f} "
+          f"pairs/s; card {card}; phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    b, p = t["batch"], t["pair"]
+    return {
+        "name": "blur", "route": "cuda",
+        "source": "sift_tpu_torch/csrc/blur.cu",
+        "replaces": BLUR_REPLACES, "launches": main_blurs, "max_abs_err": 0.0,
+        "ms": b["ms"], "ms_stream": b["ms_stream"], "timing": b["timing"],
+        "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"], "library_ms": b["library_ms"],
+        "library": "F.conv2d(F.pad(x, mode='reflect'), outer(taps, taps)), "
+                   "TF32 off",
+        f"launches_{MATCH_HEIGHT}x{MATCH_WIDTH}": launches["pair"],
+        f"ms_{MATCH_HEIGHT}x{MATCH_WIDTH}": p["ms"],
+        f"bound_ms_{MATCH_HEIGHT}x{MATCH_WIDTH}": p["bound_ms"],
+        f"plain_ms_{MATCH_HEIGHT}x{MATCH_WIDTH}": p["plain_ms"],
+        f"library_ms_{MATCH_HEIGHT}x{MATCH_WIDTH}": p["library_ms"],
+        "launches_parity_frame": launches["parity"],
+        "launches_subpixel_batch": launches["subpixel"],
+    }
 
 
 def finish(torch, card: str) -> int:
@@ -3601,12 +3690,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
-    try:
-        import sift_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: sift_tpu_torch not found beside the script: {e}",
-              file=sys.stderr)
+    if _PORT_MISSING is not None:
+        print("chip_smoke: sift_tpu_torch not found beside the script: "
+              f"{_PORT_MISSING}", file=sys.stderr)
         return 2
     from sift_tpu_torch import SiftConfig, extract_batch
     from sift_tpu_torch.kernels import build
@@ -3651,8 +3737,10 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = kcuda.launch_counts()
     print(f"main path launches: {launches}", flush=True)
-    if launches != EXPECTED_LAUNCHES:
-        return fail(f"launch counts {launches} != {EXPECTED_LAUNCHES}")
+    try:
+        hold_launches("main path", launches, EXPECTED_LAUNCHES)
+    except Failed as e:
+        return fail(str(e))
 
     # 4. each kernel against its plain version, on the recorded arguments
     plain = extraction_plain()
@@ -3677,15 +3765,15 @@ def main() -> int:
                             f"at {tuple(args[0].shape)}")
             err, rel = max(err, e), max(rel, r)
             reps = 20
-            ms_events += event_ms(torch, lambda: kern(*args), reps)
-            dev = device_ms(torch, lambda: kern(*args), reps,
-                            KERNEL_SYMBOLS[name])
+            ms_events += event_ms(lambda: kern(*args), reps)
+            dev = kernel_ms(lambda: kern(*args), KERNEL_SYMBOLS[name],
+                            reps)
             if dev is None:
                 device_seen = False
             else:
                 ms += dev
-            plain_ms += event_ms(torch, lambda: plain[name](*args), 3)
-            b, o = work_of(name, args)
+            plain_ms += event_ms(lambda: plain[name](*args), 3)
+            b, o = kernel_work(name, args)
             bytes_total += b
             ops_total += o
             if name == "refine_walk":
@@ -3786,9 +3874,13 @@ def main() -> int:
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall; card {card}",
           flush=True)
 
-    # 6. the matching path at full width
+    # 6. the matching path at full width; 16. the blur kernel, run here:
+    # after phases 7-12 the profiler's CUPTI trace has shown no device
+    # time on the H100 (phase 13c's timings fell back to CUDA events)
     try:
         extraction_err, at_size, pair_kp, row = match_phase(torch, card)
+        blur_row = blur_phase(torch, card, frames_np, launches["blur"],
+                              BATCH / batch_s, row["pairs_per_s"])
     except Failed as e:
         return fail(str(e))
     # 7. the two-view path; 8. bundle adjustment
@@ -3846,6 +3938,14 @@ def main() -> int:
     row["launches_dist"] = dist_launches["streaming_top2"]
     row["max_abs_err_dist"] = dist_err["streaming_top2"]
     rows.append(row)
+    for key, counts in (("twoview", twoview_launches), ("sfm", sfm_launches),
+                        ("loop", loop_launches),
+                        ("chunked", chunked_launches),
+                        ("stereo", stereo_launches),
+                        ("subpixel", sub_launches), ("serve", serve_launches),
+                        ("dist", dist_launches)):
+        blur_row[f"launches_{key}"] = counts["blur"]
+    rows.append(blur_row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)
 

@@ -8,6 +8,13 @@ carry leading batch axes (one 6x6 solve each), which is how
 `pose_ransac_refine` runs its hypotheses together. Jacobians are in
 closed form (`ba.residuals.project_with_jacobians`), where the JAX package
 takes them by `jax.jacfwd`.
+
+Both run in float64 and return the inputs' dtype. Once Gauss-Newton has
+converged, the accept test (`c_new < c_old`) is decided by rounding, and
+in f32 each accepted step still moves the pose by up to about 1e-4; the
+card and the CPU round their sums differently, so their poses parted by
+3.6e-4 on one chunk. In float64 those steps are about 1e-12, below f32's
+resolution of the result.
 """
 
 from __future__ import annotations
@@ -46,7 +53,11 @@ def pose_only_refine(pose: torch.Tensor, intrinsics: torch.Tensor,
     """Refine (..., 6) se(3) poses on K fixed 2D-3D correspondences
     (landmarks (K, 3), uv (K, 2), valid (..., K)).
 
-    Returns (pose, inlier_mask, rmse), inliers being residuals < 3 delta."""
+    Returns (pose, inlier_mask, rmse), inliers being residuals < 3 delta,
+    in the pose's dtype (the solve runs in float64)."""
+    dtype = pose.dtype
+    pose, intrinsics, landmarks, uv = (
+        t.to(torch.float64) for t in (pose, intrinsics, landmarks, uv))
     lam = torch.full(pose.shape[:-1], damping, dtype=pose.dtype,
                      device=pose.device)
     eye = torch.eye(6, dtype=pose.dtype, device=pose.device)
@@ -79,7 +90,7 @@ def pose_only_refine(pose: torch.Tensor, intrinsics: torch.Tensor,
     inliers = ok & (n2 < (3.0 * delta) ** 2)
     cnt = torch.clamp_min(inliers.sum(dim=-1), 1)
     rmse = torch.sqrt(torch.where(inliers, n2, 0.0).sum(dim=-1) / cnt)
-    return pose, inliers, rmse
+    return pose.to(dtype), inliers, rmse.to(dtype)
 
 
 def pose_ransac_refine(noise: Noise, pose_init: torch.Tensor,
@@ -90,7 +101,11 @@ def pose_ransac_refine(noise: Noise, pose_init: torch.Tensor,
     """Robust localization: Gauss-Newton from the init plus H hypotheses
     fitted on random subsets (drawn from `noise`, a (H, K) Gumbel tensor
     or a `torch.Generator`), scored by inlier count; the winner is
-    re-refined on all correspondences."""
+    re-refined on all correspondences (in float64, as
+    `pose_only_refine`)."""
+    dtype = pose_init.dtype
+    pose_init, intrinsics, landmarks, uv = (
+        t.to(torch.float64) for t in (pose_init, intrinsics, landmarks, uv))
     idx = sample_minimal_sets(noise, valid, num_hypotheses, subset)  # (H, S)
     sub_valid = torch.zeros((num_hypotheses,) + valid.shape, dtype=torch.bool,
                             device=valid.device).scatter(1, idx, True) & valid
@@ -104,5 +119,6 @@ def pose_ransac_refine(noise: Noise, pose_init: torch.Tensor,
     n2 = ((pred - uv) ** 2).sum(dim=-1)
     counts = (valid & (z > 1e-6) & (n2 < (3.0 * delta) ** 2)).sum(dim=-1)
     best = poses.index_select(0, torch.argmax(counts).reshape(1))[0]
-    return pose_only_refine(best, intrinsics, landmarks, uv, valid,
-                            iters=iters, delta=delta)
+    pose, inliers, rmse = pose_only_refine(best, intrinsics, landmarks, uv,
+                                           valid, iters=iters, delta=delta)
+    return pose.to(dtype), inliers, rmse.to(dtype)

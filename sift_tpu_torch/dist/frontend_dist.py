@@ -4,10 +4,9 @@
 Pure data parallel: the images split on the batch axis and each rank runs
 the batched extractor (`extract_batch`, and with it the window, refine and
 descriptor kernels on the card) on its B / world images, with no
-communication. Every mesh shape of one world size runs the same per-rank
-program, so their outputs are bit-identical; against one `extract_batch`
-of the whole batch the per-rank batch differs, and on the card the blur's
-batch-folded products may then move low bits.
+communication. The extraction of an image does not depend on the other
+images of its batch, so every mesh shape, and one `extract_batch` of the
+whole batch, give the same bits.
 """
 
 from __future__ import annotations

@@ -21,11 +21,26 @@ or None for one device. The helpers map JAX's collectives:
 
 With a group of one rank every collective is the identity, so a world of
 one gives the single-device call's result bit for bit.
+
+`shutdown_distributed` leaves the world (counterpart of
+`jax.distributed.shutdown`); `init_distributed` also registers it to run
+at exit. It exists because `destroy_process_group` alone does not end the
+backend's worker threads: a `DeviceMesh` keeps its groups alive until the
+mesh is freed, which for a mesh held to the end is while the interpreter
+finalizes. A gloo worker that then drops the last reference to a tensor
+of its last collective (Python let go of it first) needs the GIL, and
+Python 3.12 ends a thread that asks for the GIL during finalization with
+`pthread_exit`, whose unwinding through the worker's C++ frames calls
+`std::terminate`: the rank aborts ("terminate called without an active
+exception") after its work is done, more often the busier the machine.
 """
 
 from __future__ import annotations
 
+import atexit
+import gc
 import os
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -67,7 +82,33 @@ def init_distributed(device=None, init_method: Optional[str] = None,
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
                                                       dist.get_rank())))
         torch.cuda.set_device(dev)
+    global _AT_EXIT
+    if not _AT_EXIT:
+        atexit.register(shutdown_distributed)
+        _AT_EXIT = True
     return dev
+
+
+# Meshes made by `make_mesh`, whose groups `shutdown_distributed` releases.
+_MESHES: "weakref.WeakSet" = weakref.WeakSet()
+_AT_EXIT = False
+
+
+def shutdown_distributed() -> None:
+    """Leave the world: destroy every process group, and release the groups
+    that the meshes made by `make_mesh` still hold, so that the backend's
+    worker threads end now, while the interpreter runs (the module
+    docstring says why that matters). Idempotent; the meshes are unusable
+    afterwards. `init_distributed` registers it with `atexit`, so a script
+    that ends without it, or with `destroy_process_group` alone, is torn
+    down the same way."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    for mesh in list(_MESHES):
+        registry = getattr(mesh, "_pg_registry", None)
+        if registry:
+            registry.clear()
+    gc.collect()
 
 
 def make_mesh(cfg: Optional[MeshConfig] = None):
@@ -82,8 +123,10 @@ def make_mesh(cfg: Optional[MeshConfig] = None):
         raise ValueError(f"mesh {cfg} needs {cfg.num_devices} processes, "
                          f"the world has {world}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (cfg.data, cfg.model),
+    mesh = init_device_mesh(device_type, (cfg.data, cfg.model),
                             mesh_dim_names=tuple(cfg.axis_names))
+    _MESHES.add(mesh)
+    return mesh
 
 
 def mesh_device(mesh) -> torch.device:

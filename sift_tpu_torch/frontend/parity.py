@@ -148,7 +148,7 @@ def extract_parity(img: torch.Tensor, cfg: SiftConfig) -> Keypoints:
         gausses.append(_pad_to(g, h0, w0))
         # the top-left 16x16 of the blurred full Gaussian (sift.cpp:87-92),
         # once per level; octaves under 16 px are padded with zeros
-        wtls.append(_pad_to(gaussian_blur(g, 1.6, same_on_every_device=True)
+        wtls.append(_pad_to(gaussian_blur(g, 1.6)
                             [..., :2 * R, :2 * R], 2 * R, 2 * R))
     gauss_stack = torch.stack(gausses)
 

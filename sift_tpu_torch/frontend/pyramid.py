@@ -20,7 +20,6 @@ assumes a nominal input blur of 1.0 instead of 0.5.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import List
 
 import numpy as np
@@ -87,27 +86,26 @@ def build_pyramid(img: torch.Tensor, cfg: SiftConfig) -> Pyramid:
     """img: (B, H, W) float32 in [0, image_max]."""
     parity = cfg.mode == "parity"
     d = cfg.dogs_per_epoch
-    # parity blurs round alike on every device (see `gaussian_blur`)
-    blur = functools.partial(gaussian_blur, same_on_every_device=parity)
     if cfg.subpixel:
         if parity:
-            img = upsample_double(blur(img, 1.0))
+            img = upsample_double(gaussian_blur(img, 1.0))
         else:
             img = resize_bilinear(img, 2 * img.shape[-2], 2 * img.shape[-1])
     gauss_levels, dog_levels = [], []
     if parity:
         gs, ds = parity_sigma_schedule(cfg)
-        base = blur(img, cfg.sigma)
+        base = gaussian_blur(img, cfg.sigma)
         for i in range(cfg.octaves):
             levels = [base]
             for j in range(1, d + 1):
-                levels.append(blur(levels[-1], float(gs[i, j])))
+                levels.append(gaussian_blur(levels[-1], float(gs[i, j])))
             gauss_levels.append(torch.stack(levels, dim=-3))
             dog_levels.append(torch.stack(
                 [dog(levels[j - 1], levels[j], parity_offset=True)
                  for j in range(1, d + 1)], dim=-3))
             if i < cfg.octaves - 1:
-                base = downsample_half(blur(levels[d - 1], float(gs[i, d - 1])))
+                base = downsample_half(
+                    gaussian_blur(levels[d - 1], float(gs[i, d - 1])))
         return Pyramid(gauss=gauss_levels, dogs=dog_levels, gauss_sigmas=gs,
                        dog_sigmas=ds, abs_sigmas=gs.copy())
 

@@ -25,6 +25,7 @@ from sift_tpu_torch.kernels.derivatives import (_det3,
                                                 scale_space_gradient_hessian,
                                                 solve3x3)
 from sift_tpu_torch.utils.device import constant
+from sift_tpu_torch.utils.lanewise import lanewise
 
 __all__ = ["solve3x3", "refine_octave_lowe", "refine_octave_parity"]
 
@@ -98,7 +99,7 @@ def refine_octave_lowe(dogs: torch.Tensor, cand: dict, cfg: SiftConfig,
 
     dev = dogs.device
     scale = (constant(dog_sigmas[octave], dev)[li.long()]
-             * torch.pow(constant(cfg.k, dev), off[..., 2])
+             * lanewise(torch.pow, constant(cfg.k, dev), off[..., 2])
              * constant(octave_factor ** octave, dev))
     out = dict(cand)
     out["x"] = xi.to(torch.float32) + off[..., 0]

@@ -19,9 +19,13 @@ from sift_tpu_torch.frontend.orientation import (_circular_smooth,
                                                  peaks_from_histogram)
 from sift_tpu_torch.kernels.cuda import descriptor as desc_kernel
 from sift_tpu_torch.kernels.cuda import windows as window_kernel
+from sift_tpu_torch.utils.lanewise import lanewise
 
 R_DESC = 24        # window radius -> 48x48 windows
 R_ORI = 8          # orientation uses the central 16x16
+# Orientation votes an accumulating `index_put_` takes at a time on the
+# CPU: under ATen's parallel grain (32768), so that one thread adds them.
+_VOTES_A_CALL = 16384
 
 
 def gather_gradient_windows(dx_maps: torch.Tensor, dy_maps: torch.Tensor,
@@ -57,22 +61,31 @@ def orientation_from_windows(gx, gy, oy0, ox0, sigma_within, in_bounds,
     sgx = gx[:, c0:c1, c0:c1].reshape(K, -1)
     sgy = gy[:, c0:c1, c0:c1].reshape(K, -1)
     mag = torch.sqrt(sgx * sgx + sgy * sgy)
-    ang = torch.remainder(torch.rad2deg(torch.atan2(sgy, sgx)) + 360.0, 360.0)
+    ang = torch.remainder(torch.rad2deg(lanewise(torch.atan2, sgy, sgx))
+                          + 360.0, 360.0)
 
     rows = torch.arange(2 * R_ORI, dtype=torch.float32, device=gx.device) + c0
     oy = oy0[:, None, None] + rows[None, :, None]
     ox = ox0[:, None, None] + rows[None, None, :]
     sw = 1.5 * sigma_within
-    wgt = torch.exp(-(ox * ox + oy * oy).reshape(K, -1)
-                    / (2.0 * sw * sw)[:, None])
+    wgt = lanewise(torch.exp, -(ox * ox + oy * oy).reshape(K, -1)
+                   / (2.0 * sw * sw)[:, None])
     bin_idx = torch.clamp((ang / 10.0).to(torch.int64), 0, 35)
     # An accumulating `index_put_`, not `scatter_add_`: on the card it sums
     # each bin's votes in a fixed order (by sorting), where `scatter_add_`'s
     # float atomics make the bins, and every orientation after them, part
-    # in the last bits from run to run.
-    rows_k = torch.arange(K, device=gx.device)[:, None].expand_as(bin_idx)
+    # in the last bits from run to run. On the CPU it adds with atomics
+    # across threads once a call passes the parallel grain, so it runs on
+    # a block of rows at a time (one thread, votes in pixel order).
+    votes = mag * wgt
     hist = torch.zeros((K, 36), dtype=torch.float32, device=gx.device)
-    hist.index_put_((rows_k, bin_idx), mag * wgt, accumulate=True)
+    step = K if gx.is_cuda else max(1, _VOTES_A_CALL // votes.shape[1])
+    for i in range(0, K, step):
+        rows = hist[i:i + step]
+        rows_k = torch.arange(rows.shape[0], device=gx.device)[:, None]
+        rows.index_put_((rows_k.expand(-1, votes.shape[1]),
+                         bin_idx[i:i + step]), votes[i:i + step],
+                        accumulate=True)
     hist = _circular_smooth(hist, passes=2)
     hist = torch.where(in_bounds[:, None], hist, torch.zeros_like(hist))
     return peaks_from_histogram(hist, max_peaks, cfg.ori_peak_rel)
@@ -101,7 +114,8 @@ def descriptors_from_windows_multi(wins, oy0, ox0, peak_oris, sigma_within,
     theta = peak_oris * (math.pi / 180.0)
     cols = [oy0, ox0, 1.0 / hw]
     for pk in range(desc_kernel.N_PEAKS):
-        cols += [torch.cos(theta[:, pk]), torch.sin(theta[:, pk]),
+        cols += [lanewise(torch.cos, theta[:, pk]),
+                 lanewise(torch.sin, theta[:, pk]),
                  peak_oris[:, pk] * (1.0 / 45.0)]
     scal = torch.stack(cols, dim=1).to(torch.float32).contiguous()
     raw = desc_kernel.descriptor_accumulate(wins, scal)

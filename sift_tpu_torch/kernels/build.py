@@ -26,15 +26,17 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # Per-source flags. The refine walk must round every product and sum on its
 # own (no fused multiply-add), as the JAX walk does: a rounding tie moves a
-# keypoint. The descriptor takes CUDA's approximate division, sqrt and exp
-# (inside atan2f, sqrtf, expf): its votes are continuous in them and stay
-# within its tolerance, and the exact forms' special-case branches cost a
-# fifth of its time.
+# keypoint. So must the blur, to equal its plain stencil bit for bit. The
+# descriptor takes CUDA's approximate division, sqrt and exp (inside
+# atan2f, sqrtf, expf): its votes are continuous in them and stay within
+# its tolerance, and the exact forms' special-case branches cost a fifth
+# of its time.
 KERNELS = {
     "windows": [],
     "refine": ["-fmad=false"],
     "descriptor": ["-use_fast_math"],
     "match": [],
+    "blur": ["-fmad=false"],
 }
 
 _libs: dict = {}

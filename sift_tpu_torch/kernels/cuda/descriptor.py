@@ -28,6 +28,7 @@ import functools
 import torch
 
 from sift_tpu_torch.kernels import build
+from sift_tpu_torch.utils.lanewise import lanewise
 
 N_PEAKS = 2
 N_SCAL = 9          # oy0, ox0, 1/hist_width, then (cos, sin, ori/45) per peak
@@ -44,7 +45,7 @@ def _accumulate_chunk(wins: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
     gx = wins[:, 0].reshape(K, P)
     gy = wins[:, 1].reshape(K, P)
     mag = torch.sqrt(gx * gx + gy * gy)
-    a45 = torch.rad2deg(torch.atan2(gy, gx)) * (1.0 / 45.0)
+    a45 = torch.rad2deg(lanewise(torch.atan2, gy, gx)) * (1.0 / 45.0)
     pidx = torch.arange(P, device=dev)
     oy = scal[:, 0:1] + (pidx // d).to(torch.float32)
     ox = scal[:, 1:2] + (pidx % d).to(torch.float32)
@@ -57,7 +58,7 @@ def _accumulate_chunk(wins: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
                                for j in range(3))
         u = (ox * cos_t + oy * sin_t) * inv_hw
         v = (oy * cos_t - ox * sin_t) * inv_hw
-        w = mag * torch.exp((u * u + v * v) * -0.125)
+        w = mag * lanewise(torch.exp, (u * u + v * v) * -0.125)
         dd = a45 - ori45
         rel = dd - 8.0 * torch.floor(dd * 0.125)
         ob = rel - 0.5
@@ -79,13 +80,25 @@ def _accumulate_chunk(wins: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
 def descriptor_accumulate_plain(wins: torch.Tensor,
                                 scal: torch.Tensor) -> torch.Tensor:
     """wins: (K, 2, d, d) f32 (gx, gy); scal: (K, 9) f32. Returns the raw
-    (K, 2, 128) histograms, bin a*32 + b*8 + o."""
+    (K, 2, 128) histograms, bin a*32 + b*8 + o.
+
+    Runs `_CHUNK` keypoints a pass, the last pass padded with zero
+    keypoints, so that every `torch.bmm` has one shape: a batched product
+    computes each of its matrices alike wherever it sits and whatever
+    shares it, but picks its algorithm from the shape (on the CPU a batch
+    of one takes another path). Its `atan2` and `exp` run `lanewise`. A
+    keypoint's histogram therefore does not depend on which others share
+    its pass."""
     K = wins.shape[0]
     if K == 0:
         return wins.new_zeros((0, N_PEAKS, 128))
+    pad = -K % _CHUNK
+    if pad:
+        wins = torch.cat([wins, wins.new_zeros((pad,) + wins.shape[1:])])
+        scal = torch.cat([scal, scal.new_zeros((pad, scal.shape[1]))])
     return torch.cat([_accumulate_chunk(wins[i:i + _CHUNK],
                                         scal[i:i + _CHUNK])
-                      for i in range(0, K, _CHUNK)])
+                      for i in range(0, K + pad, _CHUNK)])[:K]
 
 
 @functools.cache

@@ -2,13 +2,10 @@
 
 Vigra `initGaussian(sigma)` semantics: a sampled Gaussian of radius
 round(3*sigma), normalized to unit sum, applied in X then Y with mirror
-(edge-not-repeated) borders. Up to `_MATMUL_MAX_DIM` the blur is two f32
-matrix products with the mirror border folded into a banded operator;
-above it, and wherever the result must round alike on every device, an
-explicit shifted-add stencil over a mirror-padded copy.
-
-The JAX package runs these products at `Precision.HIGHEST`, so the port
-refuses to run them in TF32 on the card.
+(edge-not-repeated) borders. The blur is a shifted-add stencil: the hand
+kernel `csrc/blur.cu` on the card, its plain version on the CPU, bit for
+bit alike. `blur_matrix` is the same blur as a banded operator (the JAX
+package's matrix form), kept for comparison with it.
 """
 
 from __future__ import annotations
@@ -19,7 +16,9 @@ import math
 import numpy as np
 import torch
 
-from sift_tpu_torch.utils.device import check_f32_matmul
+from sift_tpu_torch.kernels.cuda import blur as blur_kernel
+from sift_tpu_torch.kernels.cuda.blur import (  # noqa: F401
+    stencil_1d as _stencil_1d)
 
 
 def gaussian_radius(sigma: float) -> int:
@@ -60,61 +59,14 @@ def blur_matrix(n: int, sigma: float, radius: int | None = None) -> np.ndarray:
     return A.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
-def _blur_matrix_t(n: int, sigma: float, radius, device: str) -> torch.Tensor:
-    return torch.from_numpy(blur_matrix(n, sigma, radius)).to(device)
-
-
-# Above this size the O(n) stencil beats the dense banded product.
-_MATMUL_MAX_DIM = 2048
-
-
-def _mirror_indices(n: int, r: int, device) -> torch.Tensor:
-    """`_mirror_index(j - r, n)` for j in [0, n + 2r), computed on `device`
-    (no host table to copy there)."""
-    j = torch.arange(-r, n + r, device=device)
-    if n == 1:
-        return torch.zeros_like(j)
-    period = 2 * n - 2
-    j = torch.remainder(j, period)
-    return torch.where(j < n, j, period - j)
-
-
-def _stencil_1d(img: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
-    """Mirror-padded 1-D convolution along `dim` as a shifted-add stencil."""
-    n = img.shape[dim]
-    r = (len(taps) - 1) // 2
-    padded = img.index_select(dim, _mirror_indices(n, r, img.device))
-    out = None
-    for k, t in enumerate(taps.tolist()):
-        term = padded.narrow(dim, k, n) * t
-        out = term if out is None else out + term
-    return out
-
-
 def gaussian_blur(img: torch.Tensor, sigma: float,
-                  radius: int | None = None,
-                  same_on_every_device: bool = False) -> torch.Tensor:
-    """Separable Gaussian blur of a (..., H, W) float32 stack.
-
-    `same_on_every_device` takes the shifted-add stencil at every size:
-    one elementwise multiply and one add a tap, in tap order, which round
-    alike on the CPU and the card (matrix products do not: cuBLAS and the
-    CPU's BLAS sum in other orders). Parity mode needs it: its
-    ties-allowed extrema and hard thresholds keep or drop a keypoint on
-    the last bit of a DoG value."""
-    h, w = img.shape[-2], img.shape[-1]
-    if not same_on_every_device:
-        check_f32_matmul(img, "gaussian_blur")
-        if max(h, w) <= _MATMUL_MAX_DIM:
-            dev = str(img.device)
-            Ah = _blur_matrix_t(h, float(sigma), radius, dev)
-            Aw = _blur_matrix_t(w, float(sigma), radius, dev)
-            out = torch.matmul(img, Aw.T)          # along W first, then H
-            return torch.matmul(Ah, out)
+                  radius: int | None = None) -> torch.Tensor:
+    """Separable Gaussian blur of a (..., H, W) float32 stack: the blur
+    kernel on the card, its plain stencil on the CPU (`kernels/cuda/
+    blur.py`). Each output sums its own line's taps in tap order, so it
+    rounds alike at every batch size and on both devices."""
     taps = gaussian_kernel_1d(sigma, radius=radius)
-    out = _stencil_1d(img, taps, img.dim() - 1)
-    return _stencil_1d(out, taps, img.dim() - 2)
+    return blur_kernel.blur(img.contiguous(), taps)
 
 
 def incremental_sigma(sigma_prev: float, sigma_target: float) -> float:

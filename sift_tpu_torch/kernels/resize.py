@@ -5,9 +5,10 @@ reference uses it (`alg::reduceToNextLevel` / `increaseToNextLevel`):
 destination index i reads source index `int(i * (s-1)/(d-1) + 0.5)`.
 Bilinear resize follows `jax.image.resize(..., "bilinear")`: half-pixel
 centres, a triangle kernel (widened when downsampling) and weights
-renormalised where they fall off the edge, applied as one weight matrix a
-spatial axis. Index tables and weight matrices are host constants, built
-once per size and placed on each device once.
+renormalised where they fall off the edge, applied a spatial axis at a
+time as a sum of taps (an index and a weight an output per tap). Index
+tables and weights are host constants, built once per size and placed on
+each device once.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from sift_tpu_torch.utils.device import check_f32_matmul, constant
+from sift_tpu_torch.utils.device import constant
 
 
 def _nearest_indices(ssize: int, dsize: int) -> np.ndarray:
@@ -76,19 +77,47 @@ def bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _bilinear_weights_t(in_size: int, out_size: int, device: str):
-    return torch.from_numpy(bilinear_weights(in_size, out_size)).to(device)
+def bilinear_taps(in_size: int, out_size: int):
+    """`bilinear_weights` as taps: (T, out_size) int64 source indices and
+    f32 weights, T the widest support of an output. Output j reads sources
+    lo_j + t for t < T in ascending order (the order of the matrix
+    product); a tap past its support has weight 0 and a clamped index."""
+    wm = bilinear_weights(in_size, out_size)
+    nz = wm != 0
+    any_nz = nz.any(axis=0)
+    lo = np.where(any_nz, nz.argmax(axis=0), 0)
+    hi = np.where(any_nz, in_size - 1 - nz[::-1].argmax(axis=0), 0)
+    t = np.arange(int((hi - lo).max()) + 1)[:, None]
+    idx = lo[None, :] + t
+    inside = idx <= hi[None, :]
+    idx = np.minimum(idx, in_size - 1)
+    w = np.where(inside, wm[idx, np.arange(out_size)[None, :]], 0.0)
+    return idx.astype(np.int64), w.astype(np.float32)
+
+
+def _resize_axis(img: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
+    """Bilinear resize along `dim` (-1 or -2) as a tap sum: gather each
+    tap's sources, multiply by its weights, add in tap order."""
+    idx, w = bilinear_taps(img.shape[dim], out_size)
+    dev = img.device
+    shape = (out_size,) if dim == -1 else (out_size, 1)
+    out = None
+    for t in range(idx.shape[0]):
+        term = (img.index_select(dim, constant(idx[t], dev, torch.int64))
+                * constant(w[t], dev).reshape(shape))
+        out = term if out is None else out + term
+    return out
 
 
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear resize of a (..., H, W) float32 stack (an axis whose size
-    does not change is left alone, as in JAX)."""
-    check_f32_matmul(img, "resize_bilinear")
-    h, w = img.shape[-2], img.shape[-1]
-    dev = str(img.device)
+    """Bilinear resize of a (..., H, W) float32 stack, along W, then along
+    H (an axis whose size does not change is left alone, as in JAX). Each
+    output is the sum of its few taps in a fixed order, one elementwise
+    multiply and add a tap: it rounds alike at every batch size and on
+    every device."""
     out = img
-    if out_w != w:
-        out = torch.matmul(out, _bilinear_weights_t(w, out_w, dev))
-    if out_h != h:
-        out = torch.matmul(_bilinear_weights_t(h, out_h, dev).T, out)
+    if out_w != img.shape[-1]:
+        out = _resize_axis(out, out_w, -1)
+    if out_h != img.shape[-2]:
+        out = _resize_axis(out, out_h, -2)
     return out

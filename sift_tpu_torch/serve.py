@@ -16,11 +16,11 @@ one packed (6, M) buffer. With `batch_window_ms > 0`, concurrent
 `extract()` calls are co-batched into one `extract_batch` dispatch of
 `max_batch` slots (`_RequestBatcher`).
 
-Every extraction runs at `max_batch` images, a lone canvas repeated: on
-the card, cuBLAS sums the blur's batch-folded products in an order that
-depends on the batch size, and a keypoint can flip between a B=1 and a
-B=8 extraction of one image. At one batch size a request's keypoints are
-the same whether it rides alone or co-batched, in whichever slot.
+Every extraction runs at `max_batch` images, a lone canvas repeated, as
+the JAX service pads every dispatch to `max_batch`: the card then sees
+one set of shapes, whatever the traffic. A request's keypoints do not
+depend on the batch (the extraction of an image never reads the other
+slots), so they are the same alone or co-batched, in whichever slot.
 
 Runs on the card unless `device="cpu"`; on a machine without CUDA,
 `device="cuda"` raises.
@@ -128,8 +128,8 @@ class FeatureService:
                                            device=self.device))
 
     def _extract1(self, img: torch.Tensor):
-        """One canvas through the same batched program (the module
-        docstring says why)."""
+        """One canvas through the same batched program, at `max_batch`
+        images (the module docstring says why)."""
         imgs = img[None].expand(self.max_batch, -1, -1)
         packed, desc = self._extract_batch(imgs)
         return packed[0], desc[0]

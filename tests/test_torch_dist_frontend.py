@@ -5,8 +5,9 @@ worlds of 2 and 4 processes, started together, against the port's
 Every mesh shape of one world size runs the same per-rank program on the
 same images, so (4, 1) and (2, 2) must be bit-identical. Against one
 `extract_batch` of all 8 images the per-rank batch differs (2 or 4), and
-batched f32 products may then move low bits, so that comparison is the
-JAX suite's keypoint-set criterion (`tests/multidevice/
+the ranks run one thread each; the extraction of an image depends on
+neither, so the gathered batch equals it bit for bit. Beside it stands
+the JAX suite's keypoint-set criterion (`tests/multidevice/
 test_sharded_frontend.py:52-89`, whose frames and config these are): per
 image at most 3 keypoints apart, 90% of the keypoints matched one to one
 within 1e-2 of (x, y, 100 octave, 0.01 orientation) with descriptors
@@ -85,6 +86,13 @@ def single(frames):
     return {f: getattr(kp, f) for f in FIELDS}
 
 
+def _bits(a):
+    """Floats by their bit pattern, NaNs made one NaN; the rest as is."""
+    if a.dtype.kind != "f":
+        return a
+    return np.where(np.isnan(a), np.float32(np.nan), a).view(np.uint32)
+
+
 CASES = [(2, (2, 1)), (4, (4, 1)), (4, (2, 2))]
 IDS = [f"w{n}_{d}x{m}" for n, (d, m) in CASES]
 
@@ -137,6 +145,14 @@ def test_matches_single_device_as_sets(n, shape, worlds, single):
         assert bij.mean() >= 0.9, (b, bij.mean())
         np.testing.assert_allclose(got["desc"][b][gv][j[bij]],
                                    ref["desc"][b][rv][bij], atol=5e-3)
+
+
+@pytest.mark.parametrize("n,shape", CASES, ids=IDS)
+def test_matches_single_device_bit_for_bit(n, shape, worlds, single):
+    got = worlds[n].load(f"kp_{shape[0]}x{shape[1]}_True")
+    for f in FIELDS:
+        np.testing.assert_array_equal(_bits(got[f]), _bits(single[f]),
+                                      err_msg=f)
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -47,7 +47,8 @@ _EPILOGUE = '''
 bad = [m for m in sys.modules if m in ("jax", "flax", "sift_tpu")
        or m.startswith(("jax.", "jaxlib", "flax.", "sift_tpu."))]
 assert not bad, bad
-torch.distributed.destroy_process_group()
+from sift_tpu_torch.dist.mesh import shutdown_distributed
+shutdown_distributed()
 '''
 
 
