@@ -192,17 +192,19 @@ Phases, each fatal on failure:
      call of (a), (b) and (e) is held against its plain version; ms of a
      sharded extraction batch and of a sharded 8192^2 match beside the
      single-device calls'.
-  16. (run right after phase 6, for the profiler's sake) the blur kernel
+  16. (run right after phase 6) the blur kernel
      (`csrc/blur.cu`; it replaces no TPU kernel) and
      extraction independent of the batch: (a) every blur call of phase
      5's batch, 13c's subpixel batch, phase 6's pair and 13b's parity
-     frame, and tiny planes whose radius reaches past their size, against
-     the plain stencil bit for bit; (b) `extract_batch` of phase 5's
+     frame, tiny planes whose radius reaches past their size and edge
+     planes of the kernel's tile plan (`BLUR_EDGE`), against the plain
+     stencil bit for bit; (b) `extract_batch` of phase 5's
      frames at B = 1, 2 and 4 against B = 8, every field bit for bit
      (NaN-equal), in lowe, lowe with `subpixel` and parity; (c) phase 5's
      batch card against the CPU (images equal in every bit printed; phase
-     5's criteria on every image); (d) the blur's CUPTI ms, launches,
-     bound, plain ms and library ms (reflect pad + 2-D convolution) per
+     5's criteria on every image); (d) the blur's calls and the kernel
+     launches of their CUPTI trace (one a call), CUPTI ms, bound, plain ms
+     and library ms (reflect pad + 2-D convolution) per
      batch and per pair, beside phase 5's kf/s and phase 6's pairs/s.
 Every path's launch counts are read by `hold_launches`: the four TPU
 kernels' ports exactly as each phase expects, and the blur at least once
@@ -240,7 +242,8 @@ try:
     from sift_tpu_torch.utils.roofline import bound_ms as bound
     from sift_tpu_torch.utils.roofline import (covered_cells, kernel_work,
                                                walk_cells)
-    from sift_tpu_torch.utils.timing import busy_share, event_ms, kernel_ms
+    from sift_tpu_torch.utils.timing import (busy_share, event_ms,
+                                             kernel_trace, profiled)
     _PORT_MISSING = None
 except ImportError as _e:       # reported by main(), after the CUDA check
     _PORT_MISSING = _e
@@ -269,7 +272,7 @@ EXTRACTION_KERNELS = ("gather_windows", "refine_walk", "descriptor_accumulate")
 KERNEL_SYMBOLS = {"gather_windows": "gather_windows_kernel",
                   "refine_walk": "refine_walk_kernel",
                   "descriptor_accumulate": "descriptor_kernel",
-                  "blur": "blur_pass_kernel"}
+                  "blur": "blur_fused_kernel"}
 OUT_DIR = "chiprun_out"
 # (K, d) of the descriptor's random edge cases: d = 16, 30 and 48 (any
 # even d = 2 * min(24, H // 2, W // 2) reaches the kernel), one keypoint,
@@ -467,6 +470,15 @@ DIST_REPS = 3
 # than once; n == 1 included.
 BLUR_TINY = [((3, 1, 5), 4.0), ((2, 4, 3), 2.5), ((1, 2, 1), 1.6),
              ((2, 7, 6), 6.0), ((1, 1, 1), 1.0)]
+# (shape, sigma, radius or None for round(3 sigma)) of planes at the edges
+# of the fused kernel's plan (`blur.tile_plan`): sides that are multiples
+# of no tile, one row, one column, phase 6's 2400x3200 plane at parity's
+# r = 27 (two strips of staged rows), radii past the tile's 64 rows, and
+# the kernel's largest radius (the plan's opt-in shared memory).
+BLUR_EDGE = [((3, 67, 93), 1.6, None), ((2, 1, 300), 3.3, None),
+             ((2, 300, 1), 3.3, None), ((1, 2400, 3200), 9.0, 27),
+             ((2, 200, 260), 25.0, 75), ((1, 130, 170), 70.0, 200),
+             ((1, 61, 75), 170.0, 500), ((2, 65, 129), 2.2627417, None)]
 BLUR_REPLACES = ("none: sift_tpu/kernels/gaussian.py:72,128 blurs by XLA's "
                  "conv_general_dilated or einsum (no pallas_call)")
 KP_FIELDS = ("x", "y", "octave", "level", "scale", "score", "orientation",
@@ -1098,8 +1110,8 @@ def match_phase(torch, card: str):
                              f"launches at {tuple(args[0].shape)}")
             if name in timed:
                 t = timed[name]
-                dev = kernel_ms(lambda: kern(*args), KERNEL_SYMBOLS[name],
-                                10)
+                dev = kernel_trace(lambda: kern(*args), KERNEL_SYMBOLS[name],
+                                   10)[0]
                 t["device_seen"] &= dev is not None
                 t["ms"] += dev or 0.0
                 t["ms_stream"] += event_ms(lambda: kern(*args), 10)
@@ -1169,8 +1181,9 @@ def match_phase(torch, card: str):
         err, rows, ties = top2_check(torch, mk, got, want, args)
         reps = 10
         stream = event_ms(lambda: original(*args), reps)
-        dev = kernel_ms(lambda: original(*args),
-                        ("top2_kernel", "merge_kernel"), reps)
+        dev = kernel_trace(lambda: original(*args),
+                           ("top2_kernel", "merge_kernel"), reps,
+                           launches=None)[0]
         plain = event_ms(lambda: mk.streaming_top2_plain(*args), 3)
         lib = event_ms(lambda: top2_masked(*args, dense), 3)
         b, o = kernel_work("streaming_top2", args)
@@ -2509,14 +2522,14 @@ def hold_sets(label: str, got: dict, want: dict, rtol: float = 0.0):
 def scan_launches(torch, scan, args) -> int:
     """CUDA kernels launched by one call of the parity descriptor scan on
     a copy of its recorded arguments (the scan mutates its maps)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     kp, maps, *rest = args
     maps = maps.clone()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        scan(kp, maps, *rest)
-        torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
+    _, events = profiled(lambda: (scan(kp, maps, *rest),
+                                  torch.cuda.synchronize()),
+                         [ProfilerActivity.CUDA])
+    return sum(ev.count for ev in events
                if ev.device_type == torch.autograd.DeviceType.CUDA)
 
 
@@ -2652,24 +2665,26 @@ def parity_phase(torch, card: str) -> tuple:
     timing = {}
     plain = extraction_plain()
     for name, calls in first.items():
-        ms = ms_stream = plain_ms = nbytes = nops = 0.0
-        seen = True
+        ms_stream = plain_ms = nbytes = nops = 0.0
         for args in calls:
             ms_stream += event_ms(lambda: originals[name](*args), 20)
-            dev = kernel_ms(lambda: originals[name](*args),
-                            KERNEL_SYMBOLS[name], 20)
-            seen = seen and dev is not None
-            ms += dev or 0.0
             plain_ms += event_ms(lambda: plain[name](*args), 3)
             b, o = kernel_work(name, args)
             nbytes, nops = nbytes + b, nops + o
+        # one CUPTI session for all of the kernel's calls
+        ms, _, wait = kernel_trace(
+            lambda: [originals[name](*a) for a in calls],
+            KERNEL_SYMBOLS[name], 20, launches=len(calls))
+        seen = ms is not None
         bound_ms, bound_by = bound(nbytes, nops)
         timing[name] = {"ms": ms if seen else ms_stream,
                         "timing": "cupti" if seen else "events",
                         "ms_stream": ms_stream, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"phase 13c {name}: {timing[name]['ms']:.4f} ms/batch "
-              f"({timing[name]['timing']}), stream {ms_stream:.4f} ms, plain "
+        how = (f"cupti, the trace whole after a {wait:g} s wait" if seen
+               else "events: no CUPTI trace held every launch")
+        print(f"phase 13c {name}: {timing[name]['ms']:.4f} ms/batch ({how}), "
+              f"stream {ms_stream:.4f} ms, plain "
               f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})",
               flush=True)
     kpn = kp.to_numpy()
@@ -3499,6 +3514,13 @@ def bits(a: np.ndarray) -> np.ndarray:
     return np.where(np.isnan(a), np.float32(np.nan), a).view(np.uint32)
 
 
+def same_bits(a, b) -> bool:
+    """Two f32 tensors equal in every bit (a -0 is not a 0)."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def fields_equal(a, b, i: int, j: int) -> list:
     """The `Keypoints` fields (numpy) in which image i of `a` and image j
     of `b` differ in any bit (NaN-equal)."""
@@ -3525,8 +3547,9 @@ def blur_phase(torch, card: str, frames_np, main_blurs: int, kf_s: float,
                pairs_s: float) -> dict:
     """Phase 16: the blur kernel and extraction independent of the batch.
     (a) every blur call of phase 5's batch, 13c's subpixel batch, phase
-    6's pair and 13b's parity frame, and tiny planes whose radius reaches
-    past their size, against the plain stencil bit for bit; (b)
+    6's pair and 13b's parity frame, tiny planes whose radius reaches
+    past their size and the edge planes of the tile plan, against the
+    plain stencil bit for bit; (b)
     `extract_batch` of phase 5's frames at B=8 against B=1, 2 and 4, every
     field bit for bit (NaN-equal), in lowe, lowe with `subpixel` and
     parity; (c) phase 5's batch on the card against the CPU: images equal
@@ -3563,7 +3586,7 @@ def blur_phase(torch, card: str, frames_np, main_blurs: int, kf_s: float,
         calls[label] = rec["blur"]
         kern = orig["blur"]
         for img, taps in calls[label]:
-            if not torch.equal(kern(img, taps), bk.blur_plain(img, taps)):
+            if not same_bits(kern(img, taps), bk.blur_plain(img, taps)):
                 raise Failed(f"phase 16a blur differs from the stencil at "
                              f"{tuple(img.shape)}, {len(taps)} taps")
         shapes = sorted({(tuple(a.shape), len(t)) for a, t in calls[label]})
@@ -3574,14 +3597,20 @@ def blur_phase(torch, card: str, frames_np, main_blurs: int, kf_s: float,
         raise Failed(f"phase 16a: {launches['batch']} blurs a batch, the "
                      f"main path launched {main_blurs}")
     gen = torch.Generator(device="cuda").manual_seed(16)
-    for shape, sigma in BLUR_TINY:
-        img = torch.rand(shape, generator=gen, device="cuda") * 255.0
-        taps = gaussian_kernel_1d(sigma)
-        if not torch.equal(kern(img, taps), bk.blur_plain(img, taps)):
+    plans = []
+    for shape, sigma, radius in ([(s, g, None) for s, g in BLUR_TINY]
+                                 + BLUR_EDGE):
+        # values of both signs, so that a sign or a -0 would show
+        img = torch.rand(shape, generator=gen, device="cuda") * 255.0 - 60.0
+        taps = gaussian_kernel_1d(sigma, radius=radius)
+        plans.append(bk.tile_plan(*shape[-2:], (len(taps) - 1) // 2,
+                                  shape[0]))
+        if not same_bits(kern(img, taps), bk.blur_plain(img, taps)):
             raise Failed(f"phase 16a blur differs from the stencil at "
-                         f"{shape}, sigma {sigma}")
-    print(f"phase 16a tiny planes: {len(BLUR_TINY)} of radius >= their "
-          "size bit-identical to the stencil", flush=True)
+                         f"{shape}, {len(taps)} taps, plan {plans[-1]}")
+    print(f"phase 16a tiny planes ({len(BLUR_TINY)}, radius >= their size) "
+          f"and edge planes ({len(BLUR_EDGE)}) bit-identical to the "
+          f"stencil; plans (TH, TW, S, smem) {plans}", flush=True)
 
     # (b) extract_batch at B=8 against B=1, 2 and 4, every field
     for mode, cfg in (("lowe", SiftConfig()),
@@ -3624,13 +3653,20 @@ def blur_phase(torch, card: str, frames_np, main_blurs: int, kf_s: float,
     for label in ("batch", "pair"):
         c = t[label] = {"ms": 0.0, "ms_stream": 0.0, "plain_ms": 0.0,
                         "library_ms": 0.0, "library_err": 0.0,
-                        "bytes": 0.0, "ops": 0.0}
-        seen = True
+                        "bytes": 0.0, "ops": 0.0, "kernel_launches": 0.0}
+        # one CUPTI session for all of the cell's calls; a trace is whole
+        # only with one kernel launch a call
+        dev, c["kernel_launches"], c["cupti_wait_s"] = kernel_trace(
+            lambda: [kern(img, taps) for img, taps in calls[label]],
+            KERNEL_SYMBOLS["blur"], 20, launches=len(calls[label]))
+        if dev is None:
+            raise Failed(f"phase 16d: no CUPTI trace of the {label}'s "
+                         f"{len(calls[label])} blur calls held one kernel "
+                         f"launch a call; the last, after a "
+                         f"{c['cupti_wait_s']:g} s wait, held "
+                         f"{c['kernel_launches']:g}")
+        c["ms"] = dev
         for img, taps in calls[label]:
-            dev = kernel_ms(lambda: kern(img, taps), KERNEL_SYMBOLS["blur"],
-                            20)
-            seen = seen and dev is not None
-            c["ms"] += dev or 0.0
             c["ms_stream"] += event_ms(lambda: kern(img, taps), 20)
             c["plain_ms"] += event_ms(lambda: bk.blur_plain(img, taps), 3)
             lib = blur_library(torch, img, taps)
@@ -3640,11 +3676,15 @@ def blur_phase(torch, card: str, frames_np, main_blurs: int, kf_s: float,
             b, o = kernel_work("blur", (img, taps))
             c["bytes"] += b
             c["ops"] += o
-        if not seen:
-            c["ms"] = c["ms_stream"]
-        c["timing"] = "cupti" if seen else "events"
+        c["timing"] = "cupti"
         c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
-        print(f"phase 16d blur per {label}: {launches[label]} launches, "
+        if c["kernel_launches"] != launches[label]:
+            raise Failed(f"phase 16d: {launches[label]} blur calls per "
+                         f"{label}, {c['kernel_launches']:g} kernel launches "
+                         "in their CUPTI trace")
+        print(f"phase 16d blur per {label}: {launches[label]} calls, "
+              f"{c['kernel_launches']:g} kernel launches (CUPTI, trace "
+              f"whole after a {c['cupti_wait_s']:g} s wait), "
               f"{c['ms']:.4f} ms ({c['timing']}), stream "
               f"{c['ms_stream']:.4f} ms, bound {c['bound_ms']:.4f} ms "
               f"({c['bound_by']}), plain {c['plain_ms']:.3f} ms, library "
@@ -3766,8 +3806,8 @@ def main() -> int:
             err, rel = max(err, e), max(rel, r)
             reps = 20
             ms_events += event_ms(lambda: kern(*args), reps)
-            dev = kernel_ms(lambda: kern(*args), KERNEL_SYMBOLS[name],
-                            reps)
+            dev = kernel_trace(lambda: kern(*args), KERNEL_SYMBOLS[name],
+                               reps)[0]
             if dev is None:
                 device_seen = False
             else:
@@ -3874,9 +3914,9 @@ def main() -> int:
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall; card {card}",
           flush=True)
 
-    # 6. the matching path at full width; 16. the blur kernel, run here:
-    # after phases 7-12 the profiler's CUPTI trace has shown no device
-    # time on the H100 (phase 13c's timings fell back to CUDA events)
+    # 6. the matching path at full width; 16. the blur kernel, run here,
+    # beside the extraction cells it reads (after large profiles CUPTI's
+    # records come late: `utils/timing.py::kernel_trace` waits for them)
     try:
         extraction_err, at_size, pair_kp, row = match_phase(torch, card)
         blur_row = blur_phase(torch, card, frames_np, launches["blur"],

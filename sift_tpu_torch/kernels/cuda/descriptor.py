@@ -34,7 +34,9 @@ N_PEAKS = 2
 N_SCAL = 9          # oy0, ox0, 1/hist_width, then (cos, sin, ori/45) per peak
 D_MAX = 48          # the kernel's largest window (2 * R_DESC of the frontend)
 TOLERANCE = 1e-4    # max |kernel - plain| / max |plain| on raw histograms
-_CHUNK = 512        # keypoints per plain-version pass (bounds memory)
+# Keypoints per plain-version pass, by device (bounds memory): on the CPU
+# a pass's cost follows its padded size, on the card its launch count.
+_CHUNK = {"cpu": 64, "cuda": 512}
 LAUNCHES = 0
 
 
@@ -51,7 +53,6 @@ def _accumulate_chunk(wins: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
     ox = scal[:, 1:2] + (pidx % d).to(torch.float32)
     inv_hw = scal[:, 2:3]
     cc = torch.tensor([-1.5, -0.5, 0.5, 1.5], device=dev)
-    bins = torch.arange(8, device=dev, dtype=torch.float32)
     out = []
     for pk in range(N_PEAKS):
         cos_t, sin_t, ori45 = (scal[:, 3 + 3 * pk + j:4 + 3 * pk + j]
@@ -68,8 +69,14 @@ def _accumulate_chunk(wins: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
         b1m = torch.where(b0m >= 7.0, b0m - 7.0, b0m + 1.0)
         wf = w * frac
         w1f = w - wf
-        q = (torch.where(b0m[..., None] == bins, w1f[..., None], 0.0)
-             + torch.where(b1m[..., None] == bins, wf[..., None], 0.0))
+        # each pixel's two votes, in its bins b0 and b1 = b0 + 1 (mod 8);
+        # a NaN angle votes nowhere
+        ok = ~torch.isnan(b0m)
+        q = torch.zeros((K, P, 8), dtype=wins.dtype, device=dev)
+        q.scatter_(2, torch.where(ok, b0m, 0.0).long()[..., None],
+                   torch.where(ok, w1f, 0.0)[..., None])
+        q.scatter_(2, torch.where(ok, b1m, 0.0).long()[..., None],
+                   torch.where(ok, wf, 0.0)[..., None])
         tu = (1.0 - (u[..., None] - cc).abs()).clamp_min(0.0)
         tv = (1.0 - (v[..., None] - cc).abs()).clamp_min(0.0)
         sab = (tv[..., :, None] * tu[..., None, :]).reshape(K, P, 16)
@@ -82,7 +89,7 @@ def descriptor_accumulate_plain(wins: torch.Tensor,
     """wins: (K, 2, d, d) f32 (gx, gy); scal: (K, 9) f32. Returns the raw
     (K, 2, 128) histograms, bin a*32 + b*8 + o.
 
-    Runs `_CHUNK` keypoints a pass, the last pass padded with zero
+    Runs `_CHUNK` keypoints a pass (by device), the last padded with zero
     keypoints, so that every `torch.bmm` has one shape: a batched product
     computes each of its matrices alike wherever it sits and whatever
     shares it, but picks its algorithm from the shape (on the CPU a batch
@@ -92,13 +99,14 @@ def descriptor_accumulate_plain(wins: torch.Tensor,
     K = wins.shape[0]
     if K == 0:
         return wins.new_zeros((0, N_PEAKS, 128))
-    pad = -K % _CHUNK
+    chunk = _CHUNK[wins.device.type]
+    pad = -K % chunk
     if pad:
         wins = torch.cat([wins, wins.new_zeros((pad,) + wins.shape[1:])])
         scal = torch.cat([scal, scal.new_zeros((pad, scal.shape[1]))])
-    return torch.cat([_accumulate_chunk(wins[i:i + _CHUNK],
-                                        scal[i:i + _CHUNK])
-                      for i in range(0, K + pad, _CHUNK)])[:K]
+    return torch.cat([_accumulate_chunk(wins[i:i + chunk],
+                                        scal[i:i + chunk])
+                      for i in range(0, K + pad, chunk)])[:K]
 
 
 @functools.cache

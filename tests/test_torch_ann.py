@@ -46,7 +46,8 @@ from sift_tpu_torch.matching import (build_ivf, ivf_index_from_numpy,
                                      match_descriptors_ann, search_ivf)
 from sift_tpu_torch.io.image import save_image_gray
 from sift_tpu_torch.matching.matcher import match_descriptors
-from tests.test_torch_sfm_loop import torch_threads
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _RGB = os.path.join(_REPO, "tests", "fixtures", "tum_mini",

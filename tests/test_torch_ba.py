@@ -53,6 +53,7 @@ from sift_tpu_torch.config import BAConfig, config_from_dict
 from sift_tpu_torch.io.synthetic import (make_corridor_scene, make_scene,
                                          pad_observations)
 from sift_tpu_torch.types import MapState
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 KEYS = ("poses_init", "intrinsics", "landmarks_init", "obs_cam", "obs_lm",
         "obs_uv", "obs_valid")

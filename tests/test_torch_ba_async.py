@@ -2,7 +2,8 @@
 the chunked path) and `extract_ahead` against the JAX package on the CPU.
 
 On `SyntheticWorld` (tests/e2e/test_sfm_pipeline.py, its configuration),
-both packages run 40 frames with `ba_async`: per frame, and chunked (B =
+both packages run 16 frames (three solves, one chunk after the bootstrap)
+and, marked `slow`, 40 frames with `ba_async`: per frame, and chunked (B =
 8) with the deferred kickoff. The port draws JAX's noise
 (`test_torch_chunk_track.py::feed_jax_noise`): with independent draws the
 runs part by up to 0.02 m (sim3 ATE), as two JAX runs with other seeds do,
@@ -31,11 +32,13 @@ from sift_tpu.slam.pipeline import SfmPipeline as JaxSfmPipeline
 from tests.e2e.test_sfm_pipeline import INTR, SyntheticWorld, _pipeline
 from tests.test_torch_chunk_track import (_stack_jax, _stack_port,
                                           drive_chunked, feed_jax_noise)
-from tests.test_torch_sfm_loop import port_frames, torch_threads
+from tests.test_torch_sfm_loop import port_frames
 
 from sift_tpu_torch import cli
 from sift_tpu_torch.config import PipelineConfig, config_from_dict
 from sift_tpu_torch.slam.pipeline import SfmPipeline
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 # Window poses (log coordinates) at each apply point, port against JAX on
 # the same noise: measured up to 2.6e-3 (a 33 m trajectory); JAX against
@@ -44,12 +47,6 @@ POSE_TOL = 5e-3
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 TUM_DIR = os.path.join(FIXDIR, "tum_mini", "rgbd_dataset_freiburg1_mini")
 KITTI_ROOT = os.path.join(FIXDIR, "kitti_mini")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    with torch_threads():
-        yield
 
 
 @pytest.fixture(scope="module")
@@ -86,13 +83,12 @@ def _drive(pipe, kind, kps, stack):
         drive_chunked(pipe, kps, 8, stack)
 
 
-@pytest.mark.parametrize("kind", ["per_frame", "chunked_deferred"])
-def test_async_ba_matches_jax(world, kind):
+def _async_ba_against_jax(world, kind, n):
     kw = dict(ba_async=True)
     if kind == "chunked_deferred":
         kw.update(chunked_tracking=True, ba_defer_kickoff=True)
     cfg = _pipeline(world).cfg.replace(**kw)
-    kps = [world.frame_keypoints(i) for i in range(len(world.poses))]
+    kps = [world.frame_keypoints(i) for i in range(n)]
     jp = JaxSfmPipeline(INTR, cfg, frontend=lambda g: kps[int(g[0, 0])])
     pf = port_frames(dict(enumerate(kps)))
     pp = feed_jax_noise(SfmPipeline(
@@ -103,7 +99,7 @@ def test_async_ba_matches_jax(world, kind):
     _drive(jp, kind, kps, _stack_jax)
     _drive(pp, kind, kps, _stack_port)
     assert [a[0] for a in ap] == [a[0] for a in aj]
-    assert len(aj) >= 5
+    assert len(aj) >= (5 if n >= 40 else 3)
     for (_, got), (_, want) in zip(ap, aj):
         np.testing.assert_allclose(got, want, rtol=0, atol=POSE_TOL)
     assert fp == fj and max(fp) <= 2
@@ -114,10 +110,25 @@ def test_async_ba_matches_jax(world, kind):
     assert sorted(pp._capture) == sorted(jp._capture) == (
         ["ba", "chunk"] if kind == "chunked_deferred" else ["ba"])
     if kind == "chunked_deferred":
-        assert pp.chunk_stats["chunks"] >= 3
+        assert pp.chunk_stats["chunks"] >= (3 if n >= 40 else 1)
         stage, args = pp._capture["chunk"]
         assert stage(*args)[0].shape == (8 * 8 + 1 + (
             8 * pp.cfg.match.max_matches + 8) + 4 * args[8].x.shape[1],)
+
+
+@pytest.mark.parametrize("kind", ["per_frame", "chunked_deferred"])
+def test_async_ba_matches_jax(world, kind):
+    _async_ba_against_jax(world, kind, 16)
+
+
+# Slow (two 40-frame runs of both packages, 1-2 minutes a case on a loaded
+# CPU): out of tier-1, which runs the 16 frames above. Chunked runs with
+# async BA are held on the card to the JAX run's bounds by chip_smoke.py
+# phase 11.
+@pytest.mark.slow
+@pytest.mark.parametrize("kind", ["per_frame", "chunked_deferred"])
+def test_async_ba_matches_jax_40_frames(world, kind):
+    _async_ba_against_jax(world, kind, 40)
 
 
 def test_deferred_solves_flush_before_the_map_changes(world):

@@ -20,10 +20,11 @@ keep the file quick when the test runner's workers share the cores.
 import numpy as np
 import pytest
 import scipy.ndimage as ndi
-import torch
 
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.frontend.sift import extract_batch
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 B = 8
 FIELDS = ("x", "y", "octave", "level", "scale", "score", "orientation",
@@ -62,17 +63,8 @@ def _bits(a):
     return np.where(np.isnan(a), np.float32(np.nan), a).view(np.uint32)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The splits run at one thread; the process's count is restored."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
-def runs(one_thread):
+def runs(one_torch_thread):
     """{(mode, size): (frames, B=8 extraction at two threads)}, made on
     first use."""
     cache = {}
@@ -81,11 +73,8 @@ def runs(one_thread):
         if (mode, size) not in cache:
             h, w, _ = SIZES[size]
             frames = _frames(h, w)
-            torch.set_num_threads(2)
-            try:
+            with torch_threads(2):
                 kp = extract_batch(frames, _cfg(mode, size), device="cpu")
-            finally:
-                torch.set_num_threads(1)
             cache[mode, size] = frames, kp.to_numpy()
         return cache[mode, size]
     return get

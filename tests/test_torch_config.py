@@ -25,6 +25,8 @@ from sift_tpu_torch.config import (AnnConfig, MatchConfig, PipelineConfig,
 from sift_tpu_torch.frontend.pyramid import lowe_sigma_schedule
 from sift_tpu_torch.frontend.sift import extract_batch
 from sift_tpu_torch.kernels.gaussian import blur_matrix, gaussian_kernel_1d
+from tests.torch_dist_world import (  # noqa: F401
+    ONE_THREAD_ENV, one_torch_thread)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -132,7 +134,7 @@ def test_import_pulls_in_no_jax():
             "       or m.startswith(('jax.', 'jaxlib', 'flax.', 'orbax.',\n"
             "                        'sift_tpu.'))]\n"
             "print(repr(bad))\n")
-    env = dict(os.environ, PYTHONPATH="")
+    env = dict(os.environ, PYTHONPATH="", **ONE_THREAD_ENV)
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -23,6 +23,7 @@ from sift_tpu.frontend import windows as jw
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.frontend import windows as pw
 from sift_tpu_torch.kernels.cuda import descriptor
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 
 def _random(rng, K, d):

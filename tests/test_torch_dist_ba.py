@@ -28,7 +28,7 @@ from sift_tpu.io.synthetic import make_scene, pad_observations
 from sift_tpu_torch.ba.intrinsics import refine_intrinsics
 from sift_tpu_torch.ba.solver import run_ba
 from sift_tpu_torch.config import BAConfig, MeshConfig, config_from_dict
-from tests.torch_dist_world import World
+from tests.torch_dist_world import World, one_torch_thread  # noqa: F401
 
 KEYS = ("poses_init", "intrinsics", "landmarks_init", "obs_cam", "obs_lm",
         "obs_uv", "obs_valid")

@@ -20,7 +20,7 @@ import pytest
 
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.frontend.sift import extract_batch
-from tests.torch_dist_world import World
+from tests.torch_dist_world import World, one_torch_thread  # noqa: F401
 
 FIELDS = ("x", "y", "octave", "level", "scale", "score", "orientation",
           "valid", "desc", "n_dropped", "n_cand_pruned")

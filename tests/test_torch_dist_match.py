@@ -27,7 +27,7 @@ from sift_tpu.dist.mesh import make_mesh as jax_make_mesh
 
 from sift_tpu_torch.config import MatchConfig
 from sift_tpu_torch.matching.matcher import match_descriptors
-from tests.torch_dist_world import World
+from tests.torch_dist_world import World, one_torch_thread  # noqa: F401
 
 FIELDS = ("idx_a", "idx_b", "distance", "valid")
 # world size -> mesh shapes run in it

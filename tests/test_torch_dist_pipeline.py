@@ -28,7 +28,7 @@ import pytest
 
 import chip_smoke
 from sift_tpu_torch.dist.failure import Heartbeat
-from tests.torch_dist_world import World
+from tests.torch_dist_world import World, one_torch_thread  # noqa: F401
 
 H, W, N_FRAMES, BATCH = 180, 240, 8, 4
 INTR = (chip_smoke.SFM_INTRINSICS[0], chip_smoke.SFM_INTRINSICS[1],

@@ -30,11 +30,13 @@ from sift_tpu.slam.pose_graph import Sim3Graph as JaxSim3Graph
 from sift_tpu_torch.slam.pose_graph import (PoseGraph, Sim3Graph,
                                             optimize_pose_graph,
                                             optimize_pose_graph_sim3)
-from tests.torch_dist_world import World
+from tests.torch_dist_world import World, one_torch_thread  # noqa: F401
 from tests.unit.test_pose_graph import _compose_np, _make_loop
 
 POSE_ATOL = 1e-4
-ITERS = {6: 15, 7: 12}         # the JAX suite's iteration counts
+# LM iterations: the JAX suite runs 15 and 12; each takes 64 CG steps, each
+# step a collective, and fewer steps hold the port to JAX just as well.
+ITERS = {6: 5, 7: 4}
 FIELDS = ("poses", "edge_i", "edge_j", "edge_z", "edge_w", "fixed")
 
 _BODY = '''

@@ -40,6 +40,7 @@ from sift_tpu_torch.geometry import camera, epipolar
 from sift_tpu_torch.geometry.homography import (decompose_homography,
                                                 fit_homography)
 from sift_tpu_torch.geometry.triangulation import triangulate_dlt
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 
 def _t(x):

@@ -16,6 +16,7 @@ import pytest
 from sift_tpu import cli as jax_cli
 
 from sift_tpu_torch import cli
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 _FRAME = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                       "tum_mini", "rgbd_dataset_freiburg1_mini", "rgb",

@@ -29,6 +29,7 @@ from sift_tpu_torch.frontend.extrema import detect_extrema_octave as port_detect
 from sift_tpu_torch.frontend.refine import refine_octave_lowe
 from sift_tpu_torch.frontend.sift import extract_batch
 from sift_tpu_torch.kernels.cuda.refine import refine_walk_patches_plain
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 
 # Compiled once per shape: far quicker than op-by-op dispatch here.

@@ -25,6 +25,7 @@ from sift_tpu.geometry.ransac import sample_minimal_sets as jax_sample
 
 from sift_tpu_torch.config import RansacConfig
 from sift_tpu_torch.geometry import homography, ransac
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 H_TRUE = np.array([[0.95 * np.cos(0.07), -0.95 * np.sin(0.07), 12.0],
                    [0.95 * np.sin(0.07), 0.95 * np.cos(0.07), -7.0],

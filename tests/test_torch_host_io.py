@@ -25,7 +25,8 @@ from sift_tpu_torch.io.image import save_image_gray
 from sift_tpu_torch.io.viz import plot_trajectory
 from sift_tpu_torch.utils.debug import (assert_trees_equal, check_finite,
                                         debug_nans)
-from tests.test_torch_sfm_loop import torch_threads
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TUM_DIR = os.path.join(_REPO, "tests", "fixtures", "tum_mini",

@@ -19,6 +19,7 @@ from sift_tpu.geometry import lie_np as jlie_np
 from sift_tpu.geometry import sim3 as jsim3
 
 from sift_tpu_torch.geometry import lie, lie_np, sim3
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 
 def _t(x):

@@ -28,6 +28,7 @@ from sift_tpu.geometry import sim3 as jsim3
 
 from sift_tpu_torch.geometry import epipolar, homography, sim3
 from sift_tpu_torch.utils import linalg
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 
 def _t(a):

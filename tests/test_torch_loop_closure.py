@@ -45,22 +45,17 @@ from sift_tpu.slam.pipeline import Keyframe as JaxKeyframe
 from sift_tpu.slam.pipeline import SfmPipeline as JaxSfmPipeline
 from tests.e2e.test_sfm_pipeline import (INTR, LoopWorld, SyntheticWorld,
                                          _loop_cfg)
-from tests.test_torch_sfm_loop import port_frames, torch_threads
+from tests.test_torch_sfm_loop import port_frames
 
 from sift_tpu_torch.config import config_from_dict
 from sift_tpu_torch.eval.ate import ate_rmse
 from sift_tpu_torch.geometry import lie_np
 from sift_tpu_torch.slam.pipeline import Keyframe, SfmPipeline
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 PROBE_POSE = 5e-4
 POSE_TOL = 1e-3
 LM_RTOL = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    with torch_threads():
-        yield
 
 
 @pytest.fixture(scope="module")

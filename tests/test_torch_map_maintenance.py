@@ -35,20 +35,16 @@ from sift_tpu.slam.pipeline import Keyframe as JaxKeyframe
 from sift_tpu.slam.pipeline import SfmPipeline as JaxSfmPipeline
 from tests.e2e.test_sfm_pipeline import (INTR, KP_CAP, SyntheticWorld,
                                          _pipeline)
-from tests.test_torch_sfm_loop import port_frames, torch_threads
+from tests.test_torch_sfm_loop import port_frames
 
 from sift_tpu_torch.config import config_from_dict
 from sift_tpu_torch.eval.ate import ate_rmse
 from sift_tpu_torch.slam.pipeline import Keyframe, SfmPipeline
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 GBA_RTOL = 1e-4
 RESUME_ATOL = 2e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    with torch_threads():
-        yield
 
 
 def _port_cfg(cfg):

@@ -33,6 +33,7 @@ from sift_tpu_torch.config import MatchConfig
 from sift_tpu_torch.kernels.cuda import match as match_kernel
 from sift_tpu_torch.matching import matcher
 from sift_tpu_torch.types import Keypoints, Matches
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 
 def _case(seed, na, nb, d=128, invalid_frac=0.2):

@@ -47,6 +47,8 @@ from sift_tpu_torch.config import MatchConfig, RansacConfig, SiftConfig
 from sift_tpu_torch.geometry.homography import ransac_homography
 from sift_tpu_torch.io.image import load_image_gray, save_image_gray
 from sift_tpu_torch.matching.matcher import match_descriptors, matched_coords
+from tests.torch_dist_world import (  # noqa: F401
+    ONE_THREAD_ENV, one_torch_thread)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 96, 128
@@ -178,7 +180,7 @@ def test_cli_match_prints_the_library_counts(tmp_path):
     paths = [str(tmp_path / f"{n}.png") for n in ("a", "b")]
     for p, img in zip(paths, imgs):
         save_image_gray(p, img)
-    env = dict(os.environ, PYTHONPATH="")
+    env = dict(os.environ, PYTHONPATH="", **ONE_THREAD_ENV)
     out = subprocess.run([sys.executable, "-m", "sift_tpu_torch.cli", "match",
                           *paths, "--device", "cpu"], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -26,6 +26,7 @@ from sift_tpu.frontend.sift import extract as jax_extract
 from sift_tpu.frontend.sift import extract_batch as jax_extract_batch
 
 from sift_tpu_torch import SiftConfig, config_from_dict, extract, extract_batch
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 _PARITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "parity")
 

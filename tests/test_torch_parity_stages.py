@@ -45,6 +45,7 @@ from sift_tpu_torch.kernels.dog import dog
 from sift_tpu_torch.kernels.gaussian import gaussian_blur
 from sift_tpu_torch.kernels.gradients import gradient_magnitude_orientation
 from sift_tpu_torch.kernels.histogram import parabola_vertex, weighted_histogram
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 

@@ -37,19 +37,13 @@ import jax.numpy as jnp
 from sift_tpu.geometry import lie as jlie
 from sift_tpu.geometry import sim3 as jsim3
 from sift_tpu.slam import pose_graph as J
-from tests.test_torch_sfm_loop import torch_threads
 from tests.unit.test_pose_graph import _compose_np, _make_loop
 
 from sift_tpu_torch.slam import pose_graph as P
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 POSE_TOL = 1e-4
 LIN_TOL = {6: 1e-4, 7: 5e-4}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    with torch_threads(1):
-        yield
 
 
 def _t(a):

@@ -21,6 +21,7 @@ from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.frontend.pyramid import build_pyramid
 from sift_tpu_torch.kernels.gaussian import (_stencil_1d, gaussian_blur,
                                              gaussian_kernel_1d)
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 

@@ -32,6 +32,7 @@ from sift_tpu_torch.kernels.cuda import windows
 from sift_tpu_torch.kernels.cuda.refine import (patch_corners, refine_walk,
                                                 refine_walk_patches_plain,
                                                 refine_walk_plain)
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 jax_detect = jax.jit(detect_extrema_octave, static_argnums=(1, 2))
 

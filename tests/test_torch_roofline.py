@@ -17,6 +17,7 @@ from sift_tpu.utils.roofline import roofline as jax_roofline
 from sift_tpu_torch.kernels.gaussian import gaussian_kernel_1d
 from sift_tpu_torch.utils import roofline as rl
 from sift_tpu_torch.utils import timing
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 CASES = [  # name, seconds, flops, bytes
     ("bytes-bound", 1.2e-3, 3.0e9, 4.0e9),
@@ -104,14 +105,34 @@ def test_work_of_an_unknown_kernel_is_refused():
 
 @pytest.mark.parametrize("call", [
     lambda: timing.event_ms(lambda: None, 3),
-    lambda: timing.kernel_ms(lambda: None, "k", 3),
+    lambda: timing.kernel_trace(lambda: None, "k", 3),
     lambda: timing.busy_share(lambda: None),
-], ids=["event_ms", "kernel_ms", "busy_share"])
+], ids=["event_ms", "kernel_trace", "busy_share"])
 def test_timing_needs_the_card(call, monkeypatch):
     """No host-clock stand-in: without CUDA each function raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+
+
+@pytest.mark.parametrize("launches,seen,want", [
+    (1, {0.0: 5, 2.5: 5}, (2.0, 1.0, 0.0, [0.0])),    # whole at once
+    (1, {0.0: 3, 2.5: 5}, (2.0, 1.0, 2.5, [0.0, 2.5])),  # two records late
+    (1, {0.0: 0, 2.5: 0, 5.0: 4}, (None, 0.8, 5.0, [0.0, 2.5, 5.0])),
+    (None, {0.0: 9, 2.5: 10}, (2.0, 2.0, 2.5, [0.0, 2.5])),  # two a call
+    (2, {0.0: 5, 2.5: 10}, (2.0, 2.0, 2.5, [0.0, 2.5])),  # 5: whole for 1
+])
+def test_whole_trace_waits_until_every_launch_shows(launches, seen, want):
+    """`kernel_trace`'s repair of CUPTI's late records: a session whose
+    trace lacks a launch of its calls is taken again with the next wait
+    before it stops, and a time is only ever the mean of a whole trace."""
+    waits = []
+
+    def session(wait):
+        waits.append(wait)
+        return (10000.0 if seen[wait] else 0.0), seen[wait]
+    ms, per_call, wait = timing.whole_trace(session, 5, launches)
+    assert (ms, per_call, wait, waits) == want
 
 
 def test_roofline_of_a_measured_time():

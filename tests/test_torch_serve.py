@@ -48,7 +48,8 @@ from sift_tpu.serve import make_handler as jax_make_handler
 from sift_tpu_torch.config import MatchConfig, SiftConfig
 from sift_tpu_torch.io.image import load_image_gray
 from sift_tpu_torch.serve import FeatureService, make_handler
-from tests.test_torch_sfm_loop import torch_threads
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _RGB = os.path.join(_REPO, "tests", "fixtures", "tum_mini",

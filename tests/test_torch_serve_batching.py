@@ -22,7 +22,8 @@ from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.serve import FeatureService
 from tests.test_torch_serve import (CROP, FRAMES, H, Q8, W, _b64, _crop, _get,
                                     _post, _sift)
-from tests.test_torch_sfm_loop import torch_threads
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

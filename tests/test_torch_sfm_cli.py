@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 
 from sift_tpu_torch import cli
-from tests.test_torch_sfm_loop import torch_threads
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 TUM_DIR = os.path.join(FIXDIR, "tum_mini", "rgbd_dataset_freiburg1_mini")

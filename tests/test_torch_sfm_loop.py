@@ -16,7 +16,6 @@ two 8-thread runs of this world can part. On one thread two runs are
 bit-identical, loaded machine or not.
 """
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -30,6 +29,8 @@ from sift_tpu_torch.config import config_from_dict
 from sift_tpu_torch.eval.ate import ate_rmse as port_ate_rmse
 from sift_tpu_torch.slam.pipeline import SfmPipeline
 from sift_tpu_torch.types import Keypoints
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 POS_TOL = 9.9e-4
 
@@ -41,17 +42,6 @@ def port_frames(frames):
                                       "score", "orientation", "valid",
                                       "desc")})
             for i, kp in frames.items()}
-
-
-@contextlib.contextmanager
-def torch_threads(n: int = 1):
-    """Run the block on `n` CPU threads of PyTorch."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(n)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def run_port(cfg, frames, n, seed=0, depths=None, logger=None):

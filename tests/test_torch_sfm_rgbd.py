@@ -21,7 +21,9 @@ from sift_tpu.eval.ate import ate_rmse
 from sift_tpu.geometry import lie
 from sift_tpu.slam.pipeline import SfmPipeline as JaxSfmPipeline
 from tests.e2e.test_sfm_pipeline import H, INTR, KP_CAP, W, SyntheticWorld
-from tests.test_torch_sfm_loop import boot_frame, run_port, torch_threads
+from tests.test_torch_sfm_loop import boot_frame, run_port
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 POS_TOL = 3.4e-4
 

@@ -45,22 +45,15 @@ from sift_tpu.slam.pipeline import Keyframe as JaxKeyframe
 from sift_tpu.slam.pipeline import SfmPipeline as JaxSfmPipeline
 from sift_tpu.slam.pipeline import _np_kp as jax_np_kp
 from tests.e2e.test_sfm_pipeline import INTR, SyntheticWorld, _pipeline
-from tests.test_torch_sfm_loop import torch_threads
 
 from sift_tpu_torch.config import config_from_dict
 from sift_tpu_torch.slam.pipeline import Keyframe, SfmPipeline, _np_kp
 from sift_tpu_torch.types import Keypoints
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 TRACK_POSE = 2e-4
 TRI_RTOL = 1e-3
 BA_ATOL = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port on one CPU thread: reproducible sums (test_torch_sfm_loop.py)."""
-    with torch_threads():
-        yield
 
 
 @pytest.fixture(scope="module")

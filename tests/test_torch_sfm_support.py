@@ -27,6 +27,7 @@ from sift_tpu_torch.io import datasets, trajectory
 from sift_tpu_torch.matching.global_index import GlobalDescriptorIndex
 from sift_tpu_torch.slam.pipeline import SfmPipeline
 from sift_tpu_torch.utils import metrics
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 TUM_DIR = os.path.join(FIXDIR, "tum_mini", "rgbd_dataset_freiburg1_mini")

@@ -21,6 +21,7 @@ from sift_tpu.config import SiftConfig as JaxSiftConfig
 from sift_tpu.frontend.sift import extract_batch as jax_extract_batch
 
 from sift_tpu_torch import config_from_dict, extract, extract_batch
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 
 def _frames(seed, H=96, W=128):

@@ -29,7 +29,6 @@ import jax.numpy as jnp
 import chip_smoke
 from sift_tpu.matching.stereo import stereo_depths as jax_stereo_depths
 from sift_tpu.types import Keypoints as JaxKeypoints
-from tests.test_torch_sfm_loop import torch_threads
 
 from sift_tpu_torch import cli
 from sift_tpu_torch.config import PipelineConfig
@@ -37,6 +36,8 @@ from sift_tpu_torch.eval.ate import ate_rmse
 from sift_tpu_torch.matching.stereo import stereo_depths, stereo_depths_batch
 from sift_tpu_torch.slam.pipeline import SfmPipeline
 from sift_tpu_torch.types import Keypoints
+from tests.torch_dist_world import (  # noqa: F401
+    one_torch_thread, torch_threads)
 
 FX, BASELINE = 700.0, 0.54
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
@@ -201,6 +202,11 @@ def _report(out: str):
     return counts, [line.split(":")[0] for line in lines[1:3]], errs
 
 
+# Slow (both packages' commands on the KITTI fixture, 1.5 minutes on a
+# loaded CPU): out of tier-1. The batched and per-frame stereo paths and
+# stereo_depths against JAX stay above; chip_smoke.py phase 12a runs the
+# command on the card to the JAX test's ATE bound.
+@pytest.mark.slow
 def test_cli_sfm_stereo_prints_the_jax_lines(tmp_path, capsys, monkeypatch):
     """The same frame, keyframe and landmark counts and metric report as
     the JAX command; the ATE and RPE (both near 0.045 m on this fixture)

@@ -48,6 +48,8 @@ from sift_tpu_torch import cli, config_from_dict, extract_batch
 from sift_tpu_torch.config import RansacConfig
 from sift_tpu_torch.geometry.epipolar import estimate_relative_pose
 from sift_tpu_torch.io.image import load_image_gray
+from tests.torch_dist_world import (  # noqa: F401
+    ONE_THREAD_ENV, one_torch_thread)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _RGB = os.path.join(_REPO, "tests", "fixtures", "tum_mini",
@@ -161,7 +163,7 @@ def test_port_path_recovers_the_motion(both):
 
 
 def test_cli_twoview_prints_the_library_results():
-    env = dict(os.environ, PYTHONPATH="")
+    env = dict(os.environ, PYTHONPATH="", **ONE_THREAD_ENV)
     intr = [f"--{k}={v}" for k, v in zip(("fx", "fy", "cx", "cy"), TUM_FR1)]
     out = subprocess.run([sys.executable, "-m", "sift_tpu_torch.cli", "twoview",
                           *FRAMES, *intr, "--device", "cpu", "--time"],

@@ -23,6 +23,7 @@ from sift_tpu.kernels.pallas.windows import gather_windows_pallas
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.frontend import windows as pw
 from sift_tpu_torch.kernels.cuda.windows import gather_windows_plain
+from tests.torch_dist_world import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dtype,C,r,shape", [

@@ -10,18 +10,49 @@ body reads the inputs the test wrote with `np.savez(tmp_path / "in.npz")`
 as `IN` and writes its outputs with `save(name, **arrays)`; the test reads
 them with `World.load(name, rank)`. `World.wait` bounds the whole world by
 a timeout and kills every rank on expiry.
+
+Also the thread settings of every port test module: `torch_threads(n)`
+runs a block on n PyTorch threads, `one_torch_thread` (imported into a
+module, an autouse fixture) runs its tests on one, and `ONE_THREAD_ENV`
+is the environment for the processes they start. The test runner's
+workers share the cores; PyTorch's default of a thread a core in each of
+them oversubscribes the machine (6 workers at 8 threads each on 8 cores),
+and the port's tests then take a third longer in all. The gloo ranks run
+at one thread too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
 import time
 
 import numpy as np
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ONE_THREAD_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+@contextlib.contextmanager
+def torch_threads(n: int = 1):
+    """Run the block on `n` CPU threads of PyTorch."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's tests on one PyTorch thread; the count is restored."""
+    with torch_threads(1):
+        yield
 
 _PREAMBLE = '''
 import os, sys, warnings
@@ -63,7 +94,7 @@ class World:
             f.write(_PREAMBLE.format(repo=REPO) + body + _EPILOGUE)
         env = {k: v for k, v in os.environ.items()
                if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-        env["PYTHONPATH"] = ""
+        env.update(ONE_THREAD_ENV, PYTHONPATH="")
         self.procs = [subprocess.Popen(
             [sys.executable, script, str(rank), str(size), self.dir,
              *map(str, args)], cwd=REPO, env=env, stdout=subprocess.PIPE,
