@@ -132,13 +132,15 @@ Phases, each fatal on failure:
      configs and caps of `tests/parity/test_golden*.py`) through parity
      `extract` on the card: keypoint sets identical to the golden's and
      to the CPU plain path's, scales within 1e-4, descriptors within 2e-3
-     (+1e-3 relative against the golden), none dropped; (b) `cli.main(
+     (+1e-3 relative against the golden), none dropped, the parity scan
+     launched once and no TPU kernel's port; (b) `cli.main(
      ["extract", <png>, "-r", "1", ...])` in parity mode on a 488x600
      frame (PARITY_ZOOM) at the caps 20480/2048: rc 0, no warning, a
-     table row and an overlay per keypoint; the card's set equal to the
-     CPU run's, none dropped; the warm extraction's ms, the descriptor
-     scan's ms and kernel launches, the host syncs of the path (printed,
-     no threshold); (c) lowe `extract_batch` with `subpixel=True` on
+     table row and an overlay per keypoint, the parity scan launched once;
+     the card's set equal to the CPU run's, none dropped; the warm
+     extraction's ms, the descriptor stage's ms and kernel launches, the
+     host syncs of the path (printed; phase 17 holds them); (c) lowe
+     `extract_batch` with `subpixel=True` on
      phase 5's B=8 frames (976x1200 inside): launches 4/4/4/0, each
      kernel held against its plain version (phase 4's criteria) and
      timed at these shapes, image 0 against the CPU plain path (phase 5's
@@ -165,7 +167,8 @@ Phases, each fatal on failure:
      (launches 8/8/8/2; median transfer error under 1 px), and every
      kernel call recorded in (a) and (c) is held against its plain
      version; (d) one /extract of a `--mode parity` service, the CPU
-     service's keypoints exactly; (e) `cli match --match-impl ivf` on
+     service's keypoints exactly, the parity scan launched once; (e) `cli
+     match --match-impl ivf` on
      phase 6's pair; with the same init noise, the IVF matches of the card
      and the CPU agree on 99%; with nprobe = n_clusters they are the exact
      matcher's (phase 6's near-tie criteria); build and search ms beside
@@ -197,8 +200,9 @@ Phases, each fatal on failure:
      extraction independent of the batch: (a) every blur call of phase
      5's batch, 13c's subpixel batch, phase 6's pair and 13b's parity
      frame, tiny planes whose radius reaches past their size and edge
-     planes of the kernel's tile plan (`BLUR_EDGE`), against the plain
-     stencil bit for bit; (b) `extract_batch` of phase 5's
+     planes of the kernel's tile plan (`BLUR_EDGE`: radii up to 3000;
+     past the 500 whose taps go by value, the line path), against the
+     plain stencil bit for bit; (b) `extract_batch` of phase 5's
      frames at B = 1, 2 and 4 against B = 8, every field bit for bit
      (NaN-equal), in lowe, lowe with `subpixel` and parity; (c) phase 5's
      batch card against the CPU (images equal in every bit printed; phase
@@ -206,18 +210,33 @@ Phases, each fatal on failure:
      launches of their CUPTI trace (one a call), CUPTI ms, bound, plain ms
      and library ms (reflect pad + 2-D convolution) per
      batch and per pair, beside phase 5's kf/s and phase 6's pairs/s.
+  17. (run right after phase 13) parity as one batched pass and the
+     parity scan kernel (`csrc/parity_scan.cu`; it replaces no TPU
+     kernel): (a) a B=8 parity batch of 13b's frame rolled by i x
+     PARITY_ROLL pixels, counted: the scan exactly once, the blur at
+     least once, no TPU kernel's port; every image bit-identical to its
+     B=1 extraction; ms a batch and a frame; host syncs, none at
+     `frontend/parity.py` or `kernels/cuda/parity_scan.py`; (b) the kernel
+     against `parity_scan_plain` bit for bit (NaN-equal), `seen` and the
+     mutated maps, on every recorded scan call of 13a, 13b and (a) and on
+     a synthetic overlap-heavy table (SCAN_SYNTH); (c) CUPTI ms (one
+     kernel launch a call), stream ms, bound and plain ms of 13b's call
+     and of the batch's.
 Every path's launch counts are read by `hold_launches`: the four TPU
-kernels' ports exactly as each phase expects, and the blur at least once
+kernels' ports and the parity scan exactly as each phase expects (the
+scan once a parity batch, never in lowe mode), and the blur at least once
 on every path that extracts.
-Then it prints one `kernels` JSON line (with each kernel's launches on
+Then it prints each phase's seconds, one `kernels` JSON line (with each
+kernel's launches on
 the twoview path as `launches_twoview`, on phase 9b's sequence as
 `launches_sfm`, on phase 10a's as `launches_loop`, on phase 11a's as
 `launches_chunked`, on phase 12b's as `launches_stereo` and on phase
 13c's as `launches_subpixel`, with 13c's times as `*_subpixel`, and on
 phase 14a's three requests and 14c's match as `launches_serve`, and on
 phase 15's dist paths (a), (b) and (e) as `launches_dist`; the blur's
-row last, its times per phase 5 batch and per phase 6 pair), the card
-line, and as its last
+row, its times per phase 5 batch and per phase 6 pair; the parity
+scan's row last, its times per phase 17's batch and 13b's frame), the
+card line, and as its last
 line {"ok": true, "device": {...}}. It imports nothing of JAX or of the
 `sift_tpu` package, and exits non-zero without a result when there is no
 CUDA card or no `sift_tpu_torch` beside it.
@@ -272,7 +291,8 @@ EXTRACTION_KERNELS = ("gather_windows", "refine_walk", "descriptor_accumulate")
 KERNEL_SYMBOLS = {"gather_windows": "gather_windows_kernel",
                   "refine_walk": "refine_walk_kernel",
                   "descriptor_accumulate": "descriptor_kernel",
-                  "blur": "blur_fused_kernel"}
+                  "blur": "blur_fused_kernel",
+                  "parity_scan": "parity_scan_kernel"}
 OUT_DIR = "chiprun_out"
 # (K, d) of the descriptor's random edge cases: d = 16, 30 and 48 (any
 # even d = 2 * min(24, H // 2, W // 2) reaches the kernel), one keypoint,
@@ -443,6 +463,21 @@ GOLDEN_GRID = ["d4", "d5", "o2", "o5", "s10", "s20", "k12", "real_sub",
 GOLDEN_GRID_CAPS = {"real_sub": 4096, "real_d4": 2048, "d4_o5": 2048}
 PARITY_CAPS = (20480, 2048)
 PARITY_ZOOM = 8
+# The launches of one parity extraction batch at any B: none of the TPU
+# kernels' ports, the parity scan once (the batched pass).
+PARITY_LAUNCHES = {"gather_windows": 0, "refine_walk": 0,
+                   "descriptor_accumulate": 0, "streaming_top2": 0,
+                   "parity_scan": 1}
+# Phase 17: a B=8 parity batch, image i 13b's frame rolled by i times
+# PARITY_ROLL pixels (rows, columns); and a synthetic table (B, O, Lg, H,
+# W, N) whose slots crowd few planes and a corner of each, one plane
+# holding most of them (more than the kernel stages at a time).
+PARITY_ROLL = (61, 73)
+SCAN_SYNTH = (2, 4, 6, 128, 160, 3000)
+PARITY_SCAN_REPLACES = ("none: sift_tpu/frontend/parity.py:120 carries "
+                        "this walk as a lax.scan (no pallas_call)")
+PARITY_SCAN_LIBRARY = ("none: no PyTorch call adds in a fixed order per "
+                       "pixel and returns each slot's snapshot")
 # Phase 14: the feature service. (a) `python -m sift_tpu_torch.serve`'s
 # defaults (480x640, lowe, 1024 keypoints, a 2 ms window, batches of 8)
 # behind its HTTP front, on the TUM fixture's frames: /extract launches
@@ -473,12 +508,17 @@ BLUR_TINY = [((3, 1, 5), 4.0), ((2, 4, 3), 2.5), ((1, 2, 1), 1.6),
 # (shape, sigma, radius or None for round(3 sigma)) of planes at the edges
 # of the fused kernel's plan (`blur.tile_plan`): sides that are multiples
 # of no tile, one row, one column, phase 6's 2400x3200 plane at parity's
-# r = 27 (two strips of staged rows), radii past the tile's 64 rows, and
-# the kernel's largest radius (the plan's opt-in shared memory).
+# r = 27 (two strips of staged rows), radii past the tile's 64 rows, the
+# largest radius whose taps go by value (the plan's opt-in shared
+# memory), and past it: r = 501 (taps from a device buffer), 1000
+# (16-column tiles) and 3000, past what shared memory holds beside one
+# staged row of an 8 x 8 tile (the line path, two launches).
 BLUR_EDGE = [((3, 67, 93), 1.6, None), ((2, 1, 300), 3.3, None),
              ((2, 300, 1), 3.3, None), ((1, 2400, 3200), 9.0, 27),
              ((2, 200, 260), 25.0, 75), ((1, 130, 170), 70.0, 200),
-             ((1, 61, 75), 170.0, 500), ((2, 65, 129), 2.2627417, None)]
+             ((1, 61, 75), 170.0, 500), ((2, 65, 129), 2.2627417, None),
+             ((1, 61, 75), 167.0, 501), ((2, 40, 50), 333.3, 1000),
+             ((1, 33, 41), 1000.0, 3000)]
 BLUR_REPLACES = ("none: sift_tpu/kernels/gaussian.py:72,128 blurs by XLA's "
                  "conv_general_dilated or einsum (no pallas_call)")
 KP_FIELDS = ("x", "y", "octave", "level", "scale", "score", "orientation",
@@ -683,9 +723,13 @@ def hold_syncs(torch, fn, label: str) -> int:
 
 def hold_launches(label: str, launches: dict, expected: dict) -> None:
     """The ports of the four TPU kernels launched exactly `expected` times
-    on path `label`; and where the path extracts (launches an extraction
-    kernel), the blur, which every pyramid runs, at least once."""
-    extracts = any(expected[k] for k in EXTRACTION_KERNELS)
+    on path `label`, and the parity scan exactly as `expected` says (0
+    where it does not say); and where the path extracts (launches an
+    extraction kernel or the parity scan), the blur, which every pyramid
+    runs, at least once."""
+    expected = {"parity_scan": 0, **expected}
+    extracts = any(expected[k]
+                   for k in EXTRACTION_KERNELS + ("parity_scan",))
     if {k: launches[k] for k in expected} != expected or \
             (extracts and not launches["blur"]):
         raise Failed(f"{label} launch counts {launches} != {expected}"
@@ -2533,27 +2577,56 @@ def scan_launches(torch, scan, args) -> int:
                if ev.device_type == torch.autograd.DeviceType.CUDA)
 
 
+@contextlib.contextmanager
+def scan_recording():
+    """Wrap `kernels/cuda/parity_scan.py::parity_scan` so that each call records
+    its arguments, the maps copied as they were before it (the scan
+    mutates them); yields the list of calls."""
+    from sift_tpu_torch.kernels.cuda import parity_scan as ps
+    calls, original = [], ps.parity_scan
+
+    def recorder(maps, *rest):
+        calls.append((maps.clone(), *rest))
+        return original(maps, *rest)
+    ps.parity_scan = recorder
+    try:
+        yield calls
+    finally:
+        ps.parity_scan = original
+
+
 def parity_phase(torch, card: str) -> tuple:
     """Phase 13: parity mode and subpixel input. (a) every golden on the
-    card, held to the golden and to the CPU plain path; (b) `cli extract
-    -r 1` at full width in parity mode, against the CPU run, with the
-    extraction's and the scan's ms and the path's host syncs; (c) lowe
-    `extract_batch` with `subpixel` on phase 5's frames: launches, each
-    kernel against its plain version, image 0 against the CPU, no host
-    sync, kf/s. Returns ((c)'s launch counts, {kernel: max abs err}, {kernel:
-    timing at the subpixel shapes})."""
+    card, held to the golden and to the CPU plain path, launches counted
+    (the parity scan once); (b) `cli extract -r 1` at full width in parity
+    mode, against the CPU run, with the extraction's and the scan's ms and
+    the path's host syncs; (c) lowe `extract_batch` with `subpixel` on
+    phase 5's frames: launches, each kernel against its plain version,
+    image 0 against the CPU, no host sync, kf/s. Returns ((c)'s launch
+    counts, {kernel: max abs err}, {kernel: timing at the subpixel
+    shapes}, and for phase 17 {"calls": the recorded parity scan calls of
+    (a) and (b), "launches_goldens", "launches_cli", "frame_ms"})."""
     import io
     import tempfile
     from sift_tpu_torch import SiftConfig, cli, extract, extract_batch
     from sift_tpu_torch.frontend import parity
     from sift_tpu_torch.io.image import load_image_gray, save_image_gray
+    from sift_tpu_torch.kernels import cuda as kcuda
 
     # (a) the goldens
     t0 = time.perf_counter()
     cases = golden_cases(SiftConfig)
     n_kp, worst = 0, [0.0, 0.0, 0.0]
+    scan_calls = {"goldens": [], "frame": []}
+    launches_goldens = 0
     for key, img, rows, descs, cfg in cases:
-        card_kp = extract(img, cfg).to_numpy()
+        with scan_recording() as calls:
+            kcuda.reset_launch_counts()
+            card_kp = extract(img, cfg).to_numpy()
+            launches = kcuda.launch_counts()
+        hold_launches(f"phase 13a {key}", launches, PARITY_LAUNCHES)
+        launches_goldens += launches["parity_scan"]
+        scan_calls["goldens"] += calls
         cpu_kp = extract(img, cfg, device="cpu").to_numpy()
         if int(card_kp.n_dropped) or int(cpu_kp.n_dropped):
             raise Failed(f"phase 13a {key}: keypoints dropped")
@@ -2585,12 +2658,14 @@ def parity_phase(torch, card: str) -> tuple:
         try:
             with contextlib.redirect_stdout(out), \
                     contextlib.redirect_stderr(err):
+                kcuda.reset_launch_counts()
                 t0 = time.perf_counter()
                 rc = cli.main(["extract", png, "-r", "1", "--time",
                                "--max-keypoints-per-octave",
                                str(PARITY_CAPS[0]), "--max-keypoints",
                                str(PARITY_CAPS[1])])
                 cli_s = time.perf_counter() - t0
+                launches_cli = kcuda.launch_counts()
         finally:
             os.chdir(cwd)
         text = out.getvalue()
@@ -2604,7 +2679,10 @@ def parity_phase(torch, card: str) -> tuple:
         raise Failed(f"phase 13b cli extract: rc {rc}, {n_rows} rows for "
                      f"{n_cli} keypoints, overlay {overlay}, stderr "
                      f"{err.getvalue().strip()!r}")
-    card_kp = extract(gray, cfg).to_numpy()
+    hold_launches("phase 13b cli extract", launches_cli, PARITY_LAUNCHES)
+    with scan_recording() as calls:
+        card_kp = extract(gray, cfg).to_numpy()
+    scan_calls["frame"] = calls
     cpu_kp = extract(gray, cfg, device="cpu").to_numpy()
     if int(card_kp.n_dropped) or int(cpu_kp.n_dropped) or \
             int(card_kp.valid.sum()) != n_cli:
@@ -2649,8 +2727,9 @@ def parity_phase(torch, card: str) -> tuple:
           f"descriptor diff {dd:.3g}); command {cli_s:.3f} s (first run); "
           f"extraction {whole_ms:.3f} ms warm, descriptor scan "
           f"{float(np.median(scan_s)) * 1e3:.3f} ms median of {reps} "
-          f"({n_ok[0]} keypoints, {launches_scan} kernel launches); host syncs "
-          f"{len(sites)} {sorted(set(sites))}; card {card}", flush=True)
+          f"({n_ok[0]} keypoints, {launches_scan} kernel launches); launches "
+          f"of the command {launches_cli}; host syncs {len(sites)} "
+          f"{sorted(set(sites))}; card {card}", flush=True)
 
     # (c) lowe with subpixel on phase 5's frames
     cfg = SiftConfig(subpixel=True)
@@ -2715,7 +2794,186 @@ def parity_phase(torch, card: str) -> tuple:
     print(f"phase 13c extract_batch subpixel B={BATCH} {HEIGHT}x{WIDTH} "
           f"(internal {2 * HEIGHT}x{2 * WIDTH}): {batch_s * 1e3:.3f} ms/batch, "
           f"{BATCH / batch_s:.2f} kf/s; card {card}", flush=True)
-    return launches, errs, timing
+    return launches, errs, timing, {
+        "calls": scan_calls, "launches_goldens": launches_goldens,
+        "launches_cli": launches_cli["parity_scan"], "frame_ms": whole_ms}
+
+
+def nan_equal(a, b) -> bool:
+    """Two f32 tensors equal in every bit, every NaN taken as the same NaN
+    (NaN-equal; a -0 is not a 0)."""
+    import torch
+    if a.shape != b.shape:
+        return False
+    nan = torch.tensor(float("nan"), device=a.device)
+    return torch.equal(torch.where(a.isnan(), nan, a).view(torch.int32),
+                       torch.where(b.isnan(), nan, b).view(torch.int32))
+
+
+def synthetic_scan(torch):
+    """Phase 17's synthetic scan call on the card: SCAN_SYNTH's maps with
+    both signs, weight_tl, finite orientations (a twentieth NaN) and a
+    canonical-order table whose slots crowd the first 3 planes of each
+    image, two thirds in plane 0, their corners in a 48 x 48 corner (heavy
+    overlap), some at the far edges, a fifth without ok."""
+    B, O, Lg, H, W, N = SCAN_SYNTH
+    rng = np.random.default_rng(17)
+    plane = np.where(rng.uniform(size=(B, N)) < 2 / 3, 0,
+                     rng.integers(1, 3, (B, N)))
+    y0 = rng.integers(0, 48, (B, N))
+    x0 = rng.integers(0, 48, (B, N))
+    y0[:, ::29], x0[:, ::31] = H - 16, W - 16
+    table = np.stack([plane // Lg, plane % Lg, y0, x0,
+                      rng.uniform(size=(B, N)) < 0.8], -1).astype(np.int32)
+    ori = rng.uniform(0, 360, (B, N)).astype(np.float32)
+    ori[rng.uniform(size=(B, N)) < 0.05] = np.nan
+    arrays = ((rng.standard_normal((B, O, Lg, 2, H, W)) * 50),
+              rng.uniform(0, 1, (B, O, Lg, 16, 16)), ori, table)
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        a.astype(np.float32) if a.dtype == np.float64 else a)).cuda()
+        for a in arrays)
+
+
+def parity_scan_phase(torch, card: str, parity13: dict) -> dict:
+    """Phase 17 (run after phase 13): parity `extract_batch` as one batched
+    pass and the parity scan kernel (`csrc/parity_scan.cu`; it replaces no
+    TPU kernel). (a) a B=8 parity batch (13b's frame rolled by i x
+    PARITY_ROLL) with the counts set to 0 just before and read just after:
+    the scan exactly once, the blur at least once, no TPU kernel's port;
+    every image bit-identical (NaN-equal) to its B=1 extraction; ms a
+    batch and a frame; the path's host syncs (`count_syncs`), none at
+    `frontend/parity.py` or `kernels/cuda/parity_scan.py`. (b) the kernel
+    against `parity_scan_plain` bit for bit (NaN-equal), `seen` and the
+    mutated maps, on every recorded call of 13a, 13b and (a), and on a
+    synthetic overlap-heavy table. (c) CUPTI ms (one kernel launch a
+    call), stream ms, bound and plain ms of 13b's call and of the batch's.
+    Returns the `kernels` line's parity_scan row."""
+    from sift_tpu_torch import SiftConfig, extract_batch
+    from sift_tpu_torch.kernels import cuda as kcuda
+    from sift_tpu_torch.kernels.cuda import parity_scan as ps
+    t_phase = time.perf_counter()
+    cfg = SiftConfig(mode="parity", max_keypoints_per_octave=PARITY_CAPS[0],
+                     max_keypoints=PARITY_CAPS[1])
+    frame = parity_frame(torch)
+    frames_np = np.stack([np.roll(frame, (PARITY_ROLL[0] * i,
+                                          PARITY_ROLL[1] * i), axis=(0, 1))
+                          for i in range(BATCH)])
+    frames = torch.from_numpy(frames_np).cuda()
+
+    # (a) the batch, counted and recorded
+    extract_batch(frames, cfg)
+    torch.cuda.synchronize()
+    with scan_recording() as calls:
+        kcuda.reset_launch_counts()
+        kp = extract_batch(frames, cfg)
+        torch.cuda.synchronize()
+        launches = kcuda.launch_counts()
+    print(f"phase 17a parity B={BATCH} {HEIGHT}x{WIDTH} launches: {launches}",
+          flush=True)
+    hold_launches("phase 17a parity batch", launches, PARITY_LAUNCHES)
+    kpn = kp.to_numpy()
+    n = kpn.valid.sum(axis=1)
+    if (n == 0).any() or kpn.desc.shape != (BATCH, PARITY_CAPS[1], 128) \
+            or not np.isfinite(kpn.desc[kpn.valid]).all() \
+            or int(kpn.n_dropped.sum()):
+        raise Failed(f"phase 17a: valid per image {n.tolist()}, dropped "
+                     f"{kpn.n_dropped.tolist()}, desc {kpn.desc.shape}")
+    for i in range(BATCH):
+        bad = fields_equal(extract_batch(frames_np[i:i + 1], cfg).to_numpy(),
+                           kpn, 0, i)
+        if bad:
+            raise Failed(f"phase 17a: image {i} of the batch differs from "
+                         f"its B=1 extraction in {bad}")
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        extract_batch(frames, cfg)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) / reps * 1e3
+    sites = count_syncs(torch, lambda: extract_batch(frames, cfg))
+    ours = [x for x in sites if x.startswith(
+        ("sift_tpu_torch/frontend/parity.py", "sift_tpu_torch/kernels/"
+         "cuda/parity_scan.py"))]
+    print(f"phase 17a: valid per image {n.tolist()}, none dropped, every "
+          f"image bit-identical to its B=1 extraction; {batch_ms:.3f} ms a "
+          f"batch warm ({batch_ms / BATCH:.3f} ms a frame; 13b's B=1 frame "
+          f"{parity13['frame_ms']:.3f} ms); host syncs {len(sites)} "
+          f"{sorted(set(sites))}; card {card}", flush=True)
+    if ours:
+        raise Failed(f"phase 17a: the parity pass syncs the host at {ours}")
+
+    # (b) the kernel against its plain version on every recorded call
+    recorded = {"goldens": parity13["calls"]["goldens"],
+                "frame": parity13["calls"]["frame"], "batch": calls,
+                "synthetic": [synthetic_scan(torch)]}
+    kern = ps.parity_scan
+    longest = {}
+    for label, cs in recorded.items():
+        longest[label] = 0
+        for maps, *rest in cs:
+            table = rest[-1]
+            planes = maps.shape[0] * maps.shape[1] * maps.shape[2]
+            key = ((torch.arange(maps.shape[0], device="cuda")[:, None]
+                    * maps.shape[1] + table[..., 0]) * maps.shape[2]
+                   + table[..., 1])[table[..., 4] != 0]
+            longest[label] = max(longest[label], int(torch.bincount(
+                key, minlength=planes).max()) if key.numel() else 0)
+            got_maps, want_maps = maps.clone(), maps.clone()
+            got = kern(got_maps, *rest)
+            want = ps.parity_scan_plain(want_maps, *rest)
+            if not (nan_equal(got, want) and nan_equal(got_maps, want_maps)):
+                raise Failed(f"phase 17b: the parity scan kernel differs "
+                             f"from its plain version on a {label} call "
+                             f"(maps {tuple(maps.shape)}, table "
+                             f"{tuple(table.shape)})")
+        print(f"phase 17b {label}: {len(cs)} scan calls bit-identical "
+              f"(NaN-equal) to the plain walk, seen and maps; longest plane "
+              f"{longest[label]} slots", flush=True)
+
+    # (c) time, bound and plain time of 13b's call and the batch's
+    t = {}
+    for label in ("frame", "batch"):
+        maps, *rest = recorded[label][0]
+        work = maps.clone()
+        ms, seen, wait = kernel_trace(lambda: kern(work, *rest),
+                                      KERNEL_SYMBOLS["parity_scan"], 20)
+        if ms is None:
+            raise Failed(f"phase 17c: no CUPTI trace of the {label}'s scan "
+                         f"held one kernel launch a call (last: {seen:g} "
+                         f"after a {wait:g} s wait)")
+        nbytes, nops = kernel_work("parity_scan", (maps, *rest))
+        bound_ms, bound_by = bound(nbytes, nops)
+        t[label] = {"ms": ms, "ms_stream": event_ms(lambda: kern(work, *rest),
+                                                    20),
+                    "plain_ms": event_ms(lambda: ps.parity_scan_plain(
+                        work, *rest), 3),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "slots": int(rest[-1][..., 4].count_nonzero())}
+        c = t[label]
+        print(f"phase 17c parity_scan per {label}: {c['slots']} ok slots, "
+              f"longest plane {longest[label]}; {c['ms']:.4f} ms (CUPTI, one "
+              f"kernel launch a call, trace whole after a {wait:g} s wait), "
+              f"stream {c['ms_stream']:.4f} ms, bound {c['bound_ms']:.5f} ms "
+              f"({c['bound_by']}), plain {c['plain_ms']:.3f} ms; library: "
+              f"{PARITY_SCAN_LIBRARY}; card {card}", flush=True)
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    b, f = t["batch"], t["frame"]
+    return {
+        "name": "parity_scan", "route": "cuda",
+        "source": "sift_tpu_torch/csrc/parity_scan.cu",
+        "replaces": PARITY_SCAN_REPLACES, "launches": launches["parity_scan"],
+        "max_abs_err": 0.0, "ms": b["ms"], "ms_stream": b["ms_stream"],
+        "timing": "cupti", "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "library_ms": None, "library": PARITY_SCAN_LIBRARY,
+        "slots": b["slots"], "longest_plane": longest["batch"],
+        "ms_frame": f["ms"], "bound_ms_frame": f["bound_ms"],
+        "plain_ms_frame": f["plain_ms"], "slots_frame": f["slots"],
+        "launches_goldens": parity13["launches_goldens"],
+        "launches_cli": parity13["launches_cli"],
+        "parity_batch_ms": batch_ms, "parity_frame_ms": parity13["frame_ms"],
+    }
 
 
 def serve_request(port: int, path: str, payload=None):
@@ -3107,6 +3365,8 @@ def serve_phase(torch, card: str, window_state, boot_calls) -> tuple:
             launches = kcuda.launch_counts()
     finally:
         psvc.close()
+    hold_launches("phase 14d parity /extract", launches, PARITY_LAUNCHES)
+    launches_serve["parity_scan"] += launches["parity_scan"]
     want = valid_only(serve.FeatureService(
         pargs.height, pargs.width, sift=psvc.sift,
         device="cpu").extract(grays[0]))
@@ -3739,6 +3999,7 @@ def main() -> int:
     from sift_tpu_torch.kernels import cuda as kcuda
     from sift_tpu_torch.kernels.cuda import descriptor
 
+    t_main = time.perf_counter()
     os.makedirs(os.path.join(here, OUT_DIR), exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3917,27 +4178,41 @@ def main() -> int:
     # 6. the matching path at full width; 16. the blur kernel, run here,
     # beside the extraction cells it reads (after large profiles CUPTI's
     # records come late: `utils/timing.py::kernel_trace` waits for them)
+    laps = {"1-5": round(time.perf_counter() - t_main, 1)}
+
+    def lap(label, fn, *args):
+        """fn(*args), its seconds kept in `laps` under `label`."""
+        t = time.perf_counter()
+        out = fn(*args)
+        laps[label] = round(time.perf_counter() - t, 1)
+        return out
     try:
-        extraction_err, at_size, pair_kp, row = match_phase(torch, card)
-        blur_row = blur_phase(torch, card, frames_np, launches["blur"],
-                              BATCH / batch_s, row["pairs_per_s"])
+        extraction_err, at_size, pair_kp, row = lap("6", match_phase, torch,
+                                                    card)
+        blur_row = lap("16", blur_phase, torch, card, frames_np,
+                       launches["blur"], BATCH / batch_s, row["pairs_per_s"])
     except Failed as e:
         return fail(str(e))
     # 7. the two-view path; 8. bundle adjustment
     try:
-        twoview_launches = twoview_phase(torch, card)
-        ba = ba_phase(torch, card)
-        sfm_launches, sfm_err = sfm_phase(torch, card)
-        loop_launches, loop_err, boot_calls = loop_phase(torch, card)
-        chunked_launches, chunked_err = chunked_phase(torch, card)
-        stereo_launches, stereo_err = stereo_phase(torch, card)
-        sub_launches, sub_err, sub_timing = parity_phase(torch, card)
-        serve_launches, serve_err = serve_phase(
-            torch, card, ba["window"]["state"], boot_calls)
-        dist_launches, dist_err = dist_phase(torch, card, frames_np, pair_kp,
-                                             ba["scenes"])
+        twoview_launches = lap("7", twoview_phase, torch, card)
+        ba = lap("8", ba_phase, torch, card)
+        sfm_launches, sfm_err = lap("9", sfm_phase, torch, card)
+        loop_launches, loop_err, boot_calls = lap("10", loop_phase, torch,
+                                                  card)
+        chunked_launches, chunked_err = lap("11", chunked_phase, torch, card)
+        stereo_launches, stereo_err = lap("12", stereo_phase, torch, card)
+        sub_launches, sub_err, sub_timing, parity13 = lap(
+            "13", parity_phase, torch, card)
+        scan_row = lap("17", parity_scan_phase, torch, card, parity13)
+        serve_launches, serve_err = lap(
+            "14", serve_phase, torch, card, ba["window"]["state"], boot_calls)
+        dist_launches, dist_err = lap("15", dist_phase, torch, card,
+                                      frames_np, pair_kp, ba["scenes"])
     except Failed as e:
         return fail(str(e))
+    print(f"phase seconds: {laps}; in all "
+          f"{time.perf_counter() - t_main:.1f} s", flush=True)
     size = f"{MATCH_HEIGHT}x{MATCH_WIDTH}"
     for r in rows:
         r["launches_twoview"] = twoview_launches[r["name"]]
@@ -3986,6 +4261,8 @@ def main() -> int:
                         ("dist", dist_launches)):
         blur_row[f"launches_{key}"] = counts["blur"]
     rows.append(blur_row)
+    scan_row["launches_serve_parity"] = serve_launches["parity_scan"]
+    rows.append(scan_row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)
 

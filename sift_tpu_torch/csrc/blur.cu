@@ -50,6 +50,11 @@
 //   blocks (enough to overlap one's staging with another's arithmetic), and
 //   large radii stage their input S rows at a time so that the staged
 //   rows and the (TH + 2r) x TW W-pass buffer fit in shared memory.
+// - Past MAX_TAPS (r > 500, no path's radius) the plan is the line path:
+//   `blur_line_kernel` reads each output's folded line straight from
+//   global memory and its taps from a device buffer, one thread an
+//   output, the W pass into a scratch stack and the H pass from it, two
+//   launches. Same products and sums in the same order, so the same bits.
 // Measured designs that lost (PERF.md): plain staged loads, and register
 // staging 8 loads deep, both slower than cp.async; P = 4; a persistent
 // grid that double-buffers the next tile's staging.
@@ -62,7 +67,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int P = 8;            // outputs a thread computes along a line
-constexpr int MAX_TAPS = 1001;  // 4,004 bytes of taps: r <= 500
+constexpr int MAX_TAPS = 1001;  // 4,004 bytes of taps by value: r <= 500
 
 struct Taps {
   float v[MAX_TAPS];
@@ -178,18 +183,72 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// The line path: output (plane, y, x) of one pass, along W (`along_w`)
+// or along H, from its folded line in global memory; one thread an
+// output, taps in order.
+__global__ void __launch_bounds__(THREADS)
+    blur_line_kernel(const float* __restrict__ in, float* __restrict__ out,
+                     const float* __restrict__ taps, int ntaps, int H,
+                     int W, long long total, bool along_w) {
+  const int r = (ntaps - 1) / 2;
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long e = blockIdx.x * static_cast<long long>(THREADS) +
+                     threadIdx.x;
+       e < total; e += stride) {
+    const int x = static_cast<int>(e % W);
+    const long long row = e / W;  // plane * H + y
+    const int y = static_cast<int>(row % H);
+    const float* base = in + (row - y) * W;  // the plane
+    float acc;
+    if (along_w) {
+      const float* line = base + static_cast<long long>(y) * W;
+      acc = line[mirror(x - r, W)] * taps[0];
+      for (int k = 1; k < ntaps; ++k)
+        acc = acc + line[mirror(x + k - r, W)] * taps[k];
+    } else {
+      acc = base[static_cast<long long>(mirror(y - r, H)) * W + x] * taps[0];
+      for (int k = 1; k < ntaps; ++k)
+        acc = acc +
+              base[static_cast<long long>(mirror(y + k - r, H)) * W + x] *
+                  taps[k];
+    }
+    out[e] = acc;
+  }
+}
+
 }  // namespace
 
-// Blur `planes` (H, W) planes of `in` into `out` with `ntaps` taps read
-// from the host array `taps`, on `stream`, in tiles of TH x TW staged S
-// rows at a time with `smem` bytes of dynamic shared memory (all from
-// `tile_plan`). Returns the launch's cudaError_t; 1 (invalid value) for
-// a plan or a tap count the kernel cannot take.
+// Blur `planes` (H, W) planes of `in` into `out` with `ntaps` taps on
+// `stream`. Up to MAX_TAPS, one fused launch, the taps read from the host
+// array `taps` and passed by value, in tiles of TH x TW staged S rows at a
+// time with `smem` bytes of dynamic shared memory (all from `tile_plan`).
+// Past it (the plan's TH == 0), the line path: two launches through
+// `scratch`, a device stack the size of `in`, the taps read from the
+// device buffer `dev_taps`. Returns the first failing launch's
+// cudaError_t; 1 (invalid value) for a plan, tap count or buffer the
+// kernel cannot take.
 extern "C" int sift_blur(const float* in, float* out, const float* taps,
-                         int ntaps, long long planes, int H, int W, int TH,
-                         int TW, int S, int smem, cudaStream_t stream) {
-  if (ntaps < 1 || ntaps > MAX_TAPS || ntaps % 2 == 0 || TH % P ||
-      TW % P || S < 1 || TH < P || TW < P)
+                         const float* dev_taps, float* scratch, int ntaps,
+                         long long planes, int H, int W, int TH, int TW,
+                         int S, int smem, cudaStream_t stream) {
+  if (ntaps < 1 || ntaps % 2 == 0 || (TH == 0) != (ntaps > MAX_TAPS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (TH == 0) {
+    if (dev_taps == nullptr || scratch == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long total = planes * H * W;
+    long long blocks = (total + THREADS - 1) / THREADS;
+    if (blocks > (1 << 20)) blocks = 1 << 20;  // a grid-stride loop
+    for (int pass = 0; pass < 2; ++pass) {
+      blur_line_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
+                         stream>>>(pass ? scratch : in, pass ? out : scratch,
+                                   dev_taps, ntaps, H, W, total, pass == 0);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
+  }
+  if (TH % P || TW % P || S < 1 || TH < P || TW < P)
     return static_cast<int>(cudaErrorInvalidValue);
   Taps t;
   for (int k = 0; k < ntaps; ++k) t.v[k] = taps[k];

@@ -41,8 +41,9 @@ def parity_bounds_ok(x, y, widths, heights):
 
 def assign_orientation_parity(kp: dict, gauss_sigmas: np.ndarray,
                               shapes: np.ndarray) -> dict:
-    """kp: flat keypoint buffers; shapes: (O, 2) numpy (H_o, W_o). Returns
-    kp with `gauss_o`, `gauss_l`, a NaN `orientation` and bounds-filtered
+    """kp: keypoint buffers of any shape, (B, N) for a batch (the lookup
+    is elementwise); shapes: (O, 2) numpy (H_o, W_o). Returns kp with
+    `gauss_o`, `gauss_l`, a NaN `orientation` and bounds-filtered
     `valid`."""
     go, gl = nearest_gaussian_index(kp["scale"], gauss_sigmas)
     dev = kp["scale"].device

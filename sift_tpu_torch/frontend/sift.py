@@ -3,8 +3,9 @@
 
 `extract_batch(imgs)`: (B, H, W) -> `Keypoints` with a leading B.
 `extract(img)`: one (H, W) image through the batched path at B=1.
-Parity mode runs `frontend/parity.py::extract_parity` image by image; it
-reaches no hand kernel.
+Parity mode runs `frontend/parity.py::extract_parity` once for the whole
+batch; on the card its ordered descriptor walk is one launch of the hand
+kernel `parity_scan`.
 
 Both run on the card unless the caller passes `device="cpu"`. In lowe
 mode, on the card, every per-keypoint stage launches its hand kernel
@@ -167,11 +168,7 @@ def extract_batch(imgs, cfg: SiftConfig = SiftConfig(),
     if imgs.dim() != 3:
         raise ValueError(f"expected (B, H, W) images, got {tuple(imgs.shape)}")
     if cfg.mode == "parity":
-        kps = [extract_parity(im, cfg) for im in imgs]
-        return Keypoints(**{
-            f: (None if getattr(kps[0], f) is None
-                else torch.stack([getattr(k, f) for k in kps]))
-            for f in Keypoints.__dataclass_fields__})
+        return extract_parity(imgs, cfg)
     return extract_lowe_batched(imgs, cfg, with_descriptors)
 
 

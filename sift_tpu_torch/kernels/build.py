@@ -30,13 +30,15 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # descriptor takes CUDA's approximate division, sqrt and exp (inside
 # atan2f, sqrtf, expf): its votes are continuous in them and stay within
 # its tolerance, and the exact forms' special-case branches cost a fifth
-# of its time.
+# of its time. The parity scan promises plain adds, in the plain loop's
+# order.
 KERNELS = {
     "windows": [],
     "refine": ["-fmad=false"],
     "descriptor": ["-use_fast_math"],
     "match": [],
     "blur": ["-fmad=false"],
+    "parity_scan": ["-fmad=false"],
 }
 
 _libs: dict = {}

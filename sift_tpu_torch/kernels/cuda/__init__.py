@@ -1,12 +1,12 @@
 """Hand-written CUDA kernels of the port, one module each, with their
 plain PyTorch versions and launch counters."""
 
-from sift_tpu_torch.kernels.cuda import (blur, descriptor, match, refine,
-                                        windows)
+from sift_tpu_torch.kernels.cuda import (blur, descriptor, match,
+                                        parity_scan, refine, windows)
 
 _MODULES = {"gather_windows": windows, "refine_walk": refine,
             "descriptor_accumulate": descriptor, "streaming_top2": match,
-            "blur": blur}
+            "blur": blur, "parity_scan": parity_scan}
 
 
 def launch_counts() -> dict:

@@ -11,8 +11,10 @@ kernel repeats it term for term without fused multiply-adds, so kernel
 and plain version are bit-identical.
 
 On a CUDA tensor `blur` launches the kernel (or raises); on a CPU tensor
-it runs `blur_plain`. `LAUNCHES` counts calls: each is one launch of the
-kernel, both passes fused in tiles that `tile_plan` shapes.
+it runs `blur_plain`. Every radius the stencil takes, the kernel takes.
+`LAUNCHES` counts launches: one a call, both passes fused in tiles that
+`tile_plan` shapes, except on the line path of radii past MAX_TAPS
+(`tile_plan` gives TH == 0), two a call.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ LAUNCHES = 0
 
 # The kernel's constants (csrc/blur.cu): outputs a thread computes along a
 # line (tile sides are multiples of it), most taps a launch can pass by
-# value, and the H100's opt-in shared memory a block.
+# value (more take the line path), and the H100's opt-in shared memory a
+# block.
 P = 8
-MAX_RADIUS = 500
+MAX_TAPS = 1001
 SMEM_MAX = 232448
 # Shared memory a plan aims under, so that four blocks of 256 threads fit
 # on an SM; only radii whose smallest tile exceeds it take more. A tile
@@ -48,6 +51,10 @@ SMEM_TARGET = 64 * 1024
 # than any single shape on a B=8 488x600 batch (32 x 64 and 32 x 32).
 TILES = ((64, 64), (32, 64), (32, 32))
 BLOCKS = 1000
+# `tile_plan`'s plan past MAX_TAPS (r > 500, which no path reaches): the
+# kernel's line path, which reads each folded line from global memory and
+# its taps from a device buffer.
+LINE_PATH = (0, 0, 0, 0)
 
 def mirror_indices(n: int, r: int, device) -> torch.Tensor:
     """scipy 'mirror' (reflect-without-edge-duplication) index of j - r for
@@ -101,13 +108,12 @@ def tile_plan(H: int, W: int, r: int, planes: int = 1) -> tuple:
     SMEM_TARGET; past it the tile shrinks (rows first, to P) while a strip
     would hold fewer than 8 rows, then the strip shortens. Only where the
     smallest tile's W-pass buffer alone exceeds SMEM_TARGET does the block
-    take up to SMEM_MAX. Raises for r > MAX_RADIUS."""
+    take up to SMEM_MAX. Past MAX_TAPS the plan is LINE_PATH."""
     if H < 1 or W < 1 or r < 0 or planes < 1:
         raise ValueError(f"blur: no plan for {planes} {H}x{W} planes at "
                          f"radius {r}")
-    if r > MAX_RADIUS:
-        raise ValueError(f"blur: radius {r} exceeds the kernel's "
-                         f"{MAX_RADIUS} ({2 * MAX_RADIUS + 1} taps)")
+    if 2 * r + 1 > MAX_TAPS:
+        return LINE_PATH
     TH, TW = next((t for t in TILES if _blocks(H, W, *t, planes) >= BLOCKS),
                   TILES[-1])
     TW = min(TW, P * math.ceil(W / P))
@@ -132,7 +138,7 @@ def tile_plan(H: int, W: int, r: int, planes: int = 1) -> tuple:
 def _fn():
     fn = build.library("blur").sift_blur
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, i, ll, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, i, i, p]
     fn.restype = i
     return fn
 
@@ -158,9 +164,16 @@ def blur(img: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     planes = img.numel() // (H * W)
     TH, TW, S, smem = tile_plan(H, W, (taps.size - 1) // 2, planes)
     taps = np.ascontiguousarray(taps)
-    rc = _fn()(img.data_ptr(), out.data_ptr(), taps.ctypes.data, taps.size,
+    # the line path takes its taps from a device buffer and a scratch
+    # stack for its W pass
+    line = TH == 0
+    dev_taps = torch.from_numpy(taps).to(img.device) if line else None
+    scratch = torch.empty_like(img) if line else None
+    rc = _fn()(img.data_ptr(), out.data_ptr(), taps.ctypes.data,
+               None if dev_taps is None else dev_taps.data_ptr(),
+               None if scratch is None else scratch.data_ptr(), taps.size,
                planes, H, W, TH, TW, S, smem,
                torch.cuda.current_stream(img.device).cuda_stream)
     build.check(rc, "blur")
-    LAUNCHES += 1
+    LAUNCHES += 2 if line else 1
     return out

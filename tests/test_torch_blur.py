@@ -139,13 +139,35 @@ def test_stencil_line_window_feeds_each_tap_in_order(ntaps):
         assert offsets == [i + k for k in range(ntaps)]
 
 
+def _line_blur_emulated(img: np.ndarray, taps: np.ndarray):
+    """The line path (`blur_line_kernel`): each output of a pass from its
+    folded line, `mirror(i + k - r)` tap by tap, in f32 numpy."""
+    N, H, W = img.shape
+    r = (len(taps) - 1) // 2
+    t = [np.float32(v) for v in taps]
+    xs = np.array([[_mirror_index(x + k - r, W) for x in range(W)]
+                   for k in range(len(t))])
+    ys = np.array([[_mirror_index(y + k - r, H) for y in range(H)]
+                   for k in range(len(t))])
+    mid = img[:, :, xs[0]] * t[0]
+    for k in range(1, len(t)):
+        mid = mid + img[:, :, xs[k]] * t[k]
+    out = mid[:, ys[0], :] * t[0]
+    for k in range(1, len(t)):
+        out = out + mid[:, ys[k], :] * t[k]
+    return out, np.ones(img.shape, np.int32)
+
+
 def _fused_blur_emulated(img: np.ndarray, taps: np.ndarray):
     """The kernel's tiles, strips, staging folds and both passes in f32
     numpy, one product and one sum a tap in tap order; returns the output
-    and how many times each output was written."""
+    and how many times each output was written. A plan of the line path
+    runs `_line_blur_emulated`."""
     N, H, W = img.shape
     r = (len(taps) - 1) // 2
     TH, TW, S, _ = bk.tile_plan(H, W, r, N)
+    if TH == 0:
+        return _line_blur_emulated(img, taps)
     rows, cols = TH + 2 * r, TW + 2 * r
     out = np.full(img.shape, np.nan, np.float32)
     writes = np.zeros(img.shape, np.int32)
@@ -183,6 +205,9 @@ def _fused_blur_emulated(img: np.ndarray, taps: np.ndarray):
     ((2, 4, 3), 2.5, None),         # radius past the plane
     ((1, 90, 70), 9.0, 27),         # parity's largest radius: two strips
     ((1, 20, 40), 30.0, 90),        # a radius past the tile's height
+    ((1, 9, 12), 167.0, 501),       # past the taps that go by value:
+    ((1, 5, 7), 333.3, 1000),       # the line path, its taps from a
+    ((2, 3, 4), 1000.0, 3000),      # device buffer
 ])
 def test_fused_tiles_equal_the_stencil_bit_for_bit(shape, sigma, radius):
     """The kernel's tiling, strips and staging folds, emulated in f32,
@@ -228,15 +253,21 @@ def test_tile_plan_fits_and_covers_every_plane(r, planes):
 
 def test_tile_plan_every_radius_to_200_and_the_largest_radius():
     """Radii 1 to 200 (lowe, lowe-subpixel and parity at 4 to 8 octaves
-    reach 27) on the largest and the smallest plane, and the kernel's
-    largest radius, all fit; past it the wrapper refuses."""
+    reach 27) on the largest and the smallest plane all fit, and so does
+    the largest radius whose taps go by value, 500. Radii 501, 1000 and
+    5000 take the line path, which needs no shared memory. No radius that
+    the stencil takes is refused."""
     for r in range(1, 201):
         for H, W, n in ((2400, 3200, 2), (1, 1, 1), (3200, 2400, 1),
                         (61, 75, 8)):
             assert bk.tile_plan(H, W, r, n)[3] <= bk.SMEM_MAX
-    assert bk.tile_plan(2400, 3200, bk.MAX_RADIUS)[3] <= bk.SMEM_MAX
-    with pytest.raises(ValueError, match="radius"):
-        bk.tile_plan(64, 64, bk.MAX_RADIUS + 1)
+    for H, W, n in ((2400, 3200, 2), (1, 1, 1), (61, 75, 8)):
+        TH, TW, S, smem = bk.tile_plan(H, W, (bk.MAX_TAPS - 1) // 2, n)
+        assert TH >= bk.P and TW >= bk.P and S >= 1
+        assert smem == bk.smem_bytes(TH, TW, S, (bk.MAX_TAPS - 1) // 2)
+        assert smem <= bk.SMEM_MAX
+        for r in (501, 1000, 5000):
+            assert bk.tile_plan(H, W, r, n) == bk.LINE_PATH
 
 
 @pytest.mark.parametrize("H,W,planes,tile", [

@@ -335,8 +335,12 @@ def test_assign_orientation_parity(parts):
 def test_descriptor_scan_on_jax_inputs(parts):
     *_, (_, _, _, jkp, stacks, jdesc, jok) = parts
     mag, ori, gauss, wtl = (T(np.ascontiguousarray(a)) for a in stacks)
+    # the port's scan takes a batch: this image as a batch of one
     desc, ok = parity.descriptor_scan_parity(
-        _tensors(jkp), torch.stack([mag, ori], dim=2), gauss, wtl, parts[2])
+        {k: v[None] for k, v in _tensors(jkp).items()},
+        torch.stack([mag, ori], dim=2)[None], gauss[None], wtl[None],
+        parts[2])
+    desc, ok = desc[0], ok[0]
     np.testing.assert_array_equal(ok.numpy(), jok)
     assert jok.sum() > 10
     np.testing.assert_allclose(desc.numpy()[jok], jdesc[jok], rtol=0,

@@ -82,6 +82,27 @@ def test_work_of_the_blur():
                                                    70 * 2.0 * 21)
 
 
+@pytest.mark.parametrize("second,pixels,planes", [
+    ((1, 2, 0, 0, 0), 2 * 256, 2),      # image 1's plane: no overlap
+    ((0, 2, 2, 4, 0), 2 * 256 - 14 * 12, 1),  # 14 x 12 pixels shared
+], ids=["two_planes", "overlapping"])
+def test_work_of_the_parity_scan(second, pixels, planes):
+    """Two ok slots of three, in a batch of 2 images x 3 x 4 planes: the
+    maps' distinct window pixels are read and written once in both maps,
+    each ok slot writes its 2,048 bytes of seen and reads 20 bytes
+    (orientation, corner, order entry) and does 512 adds, each plane with
+    an ok slot reads its 1,024 bytes of weight_tl, and the planes'
+    segment starts are read once."""
+    maps = torch.zeros((2, 3, 4, 2, 20, 24))
+    wtl, ori = torch.zeros((2, 3, 4, 16, 16)), torch.zeros((2, 3))
+    table = torch.zeros((2, 3, 5), dtype=torch.int32)
+    table[0, 1, 4] = 1
+    b, i, y0, x0, _ = second
+    table[b, i] = torch.tensor([0, 0, y0, x0, 1], dtype=torch.int32)
+    assert rl.kernel_work("parity_scan", (maps, wtl, ori, table)) == \
+        (pixels * 16 + 2 * 2068 + planes * 1024 + 25 * 8, 2 * 512.0)
+
+
 def test_work_of_the_refine_walk():
     """One keypoint in the middle of a flat DoG stack: the walk does not
     move, so it reads the 27-cell cube at its start twice (the first step
