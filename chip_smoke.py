@@ -217,11 +217,15 @@ Phases, each fatal on failure:
      least once, no TPU kernel's port; every image bit-identical to its
      B=1 extraction; ms a batch and a frame; host syncs, none at
      `frontend/parity.py` or `kernels/cuda/parity_scan.py`; (b) the kernel
-     against `parity_scan_plain` bit for bit (NaN-equal), `seen` and the
-     mutated maps, on every recorded scan call of 13a, 13b and (a) and on
-     a synthetic overlap-heavy table (SCAN_SYNTH); (c) CUPTI ms (one
-     kernel launch a call), stream ms, bound and plain ms of 13b's call
-     and of the batch's.
+     (tile lists walked per pixel) against `parity_scan_plain` bit for
+     bit (NaN-equal), `seen` and the mutated maps, on every recorded scan
+     call of 13a, 13b and (a) and on three synthetic tables: overlap-heavy
+     (SCAN_SYNTH), every slot on one window (the longest tile lists) and
+     windows on the tile corners at the far edges of ragged maps
+     (SCAN_FAR); the longest tile list of each; (c) of 13b's call and the
+     batch's: the kernel's CUPTI ms (one kernel launch a call), the whole
+     call's stream ms (tile lists built), the tile lists and the longest,
+     bound and plain ms.
 Every path's launch counts are read by `hold_launches`: the four TPU
 kernels' ports and the parity scan exactly as each phase expects (the
 scan once a parity batch, never in lowe mode), and the blur at least once
@@ -469,11 +473,16 @@ PARITY_LAUNCHES = {"gather_windows": 0, "refine_walk": 0,
                    "descriptor_accumulate": 0, "streaming_top2": 0,
                    "parity_scan": 1}
 # Phase 17: a B=8 parity batch, image i 13b's frame rolled by i times
-# PARITY_ROLL pixels (rows, columns); and a synthetic table (B, O, Lg, H,
-# W, N) whose slots crowd few planes and a corner of each, one plane
-# holding most of them (more than the kernel stages at a time).
+# PARITY_ROLL pixels (rows, columns); and synthetic tables (B, O, Lg, H,
+# W, N): SCAN_SYNTH's slots crowd few planes and a corner of each, one
+# plane holding most of them; its "one window" table puts every slot of
+# an image on one window across a tile corner (4 lists of N entries, the
+# longest a table can give, more than the kernel stages at a time);
+# SCAN_FAR's maps have sides that are multiples of no tile, and its slots
+# sit on the tile corners nearest the far edges and on the far edges.
 PARITY_ROLL = (61, 73)
 SCAN_SYNTH = (2, 4, 6, 128, 160, 3000)
+SCAN_FAR = (2, 3, 4, 133, 171, 2000)
 PARITY_SCAN_REPLACES = ("none: sift_tpu/frontend/parity.py:120 carries "
                         "this walk as a lax.scan (no pallas_call)")
 PARITY_SCAN_LIBRARY = ("none: no PyTorch call adds in a fixed order per "
@@ -2810,28 +2819,60 @@ def nan_equal(a, b) -> bool:
                        torch.where(b.isnan(), nan, b).view(torch.int32))
 
 
-def synthetic_scan(torch):
-    """Phase 17's synthetic scan call on the card: SCAN_SYNTH's maps with
-    both signs, weight_tl, finite orientations (a twentieth NaN) and a
-    canonical-order table whose slots crowd the first 3 planes of each
-    image, two thirds in plane 0, their corners in a 48 x 48 corner (heavy
-    overlap), some at the far edges, a fifth without ok."""
-    B, O, Lg, H, W, N = SCAN_SYNTH
+def synthetic_scans(torch) -> dict:
+    """Phase 17's synthetic scan calls on the card, by label. Maps with
+    both signs, weight_tl, finite orientations (a twentieth NaN) and
+    canonical-order tables: "overlap", SCAN_SYNTH's slots crowding the
+    first 3 planes of each image, two thirds in plane 0, their corners in
+    a 48 x 48 corner (heavy overlap), some at the far edges, a fifth
+    without ok; "one window", every slot of SCAN_SYNTH's images ok on the
+    window at (41, 57) of plane 0 (across a tile corner); "far corners",
+    SCAN_FAR's slots on windows across the tile corners nearest the far
+    edges and on the far edges, a fifth without ok."""
+    def call(shape, plane, y0, x0, ok, rng):
+        B, O, Lg, H, W, N = shape
+        table = np.stack([plane // Lg, plane % Lg, y0, x0, ok],
+                         -1).astype(np.int32)
+        ori = rng.uniform(0, 360, (B, N)).astype(np.float32)
+        ori[rng.uniform(size=(B, N)) < 0.05] = np.nan
+        arrays = ((rng.standard_normal((B, O, Lg, 2, H, W)) * 50),
+                  rng.uniform(0, 1, (B, O, Lg, 16, 16)), ori, table)
+        return tuple(torch.from_numpy(np.ascontiguousarray(
+            a.astype(np.float32) if a.dtype == np.float64 else a)).cuda()
+            for a in arrays)
+
     rng = np.random.default_rng(17)
+    B, O, Lg, H, W, N = SCAN_SYNTH
     plane = np.where(rng.uniform(size=(B, N)) < 2 / 3, 0,
                      rng.integers(1, 3, (B, N)))
     y0 = rng.integers(0, 48, (B, N))
     x0 = rng.integers(0, 48, (B, N))
     y0[:, ::29], x0[:, ::31] = H - 16, W - 16
-    table = np.stack([plane // Lg, plane % Lg, y0, x0,
-                      rng.uniform(size=(B, N)) < 0.8], -1).astype(np.int32)
-    ori = rng.uniform(0, 360, (B, N)).astype(np.float32)
-    ori[rng.uniform(size=(B, N)) < 0.05] = np.nan
-    arrays = ((rng.standard_normal((B, O, Lg, 2, H, W)) * 50),
-              rng.uniform(0, 1, (B, O, Lg, 16, 16)), ori, table)
-    return tuple(torch.from_numpy(np.ascontiguousarray(
-        a.astype(np.float32) if a.dtype == np.float64 else a)).cuda()
-        for a in arrays)
+    calls = {"overlap": call(SCAN_SYNTH, plane, y0, x0,
+                             rng.uniform(size=(B, N)) < 0.8, rng)}
+    full = np.full((B, N), 1)
+    calls["one window"] = call(SCAN_SYNTH, 0 * full, 41 * full, 57 * full,
+                               full, rng)
+    B, O, Lg, H, W, N = SCAN_FAR
+    # corners 1-15 before the last two tile edges inside the maps, or on
+    # the far edge
+    ys = np.r_[np.arange(H // 16 * 16 - 15, H // 16 * 16),
+               np.arange(H // 16 * 16 - 31, H // 16 * 16 - 16), H - 16]
+    xs = np.r_[np.arange(W // 16 * 16 - 15, W // 16 * 16),
+               np.arange(W // 16 * 16 - 31, W // 16 * 16 - 16), W - 16]
+    ys, xs = ys[ys <= H - 16], xs[xs <= W - 16]
+    calls["far corners"] = call(
+        SCAN_FAR, rng.integers(0, O * Lg, (B, N)), rng.choice(ys, (B, N)),
+        rng.choice(xs, (B, N)), rng.uniform(size=(B, N)) < 0.8, rng)
+    return calls
+
+
+def tile_lists(ps, maps, table) -> tuple:
+    """(lists, longest list) of the kernel's tile lists for one call."""
+    _, keys, starts, count = ps.tile_order(
+        table, (*maps.shape[1:3], *maps.shape[-2:]))
+    n = int(count)
+    return n, int((starts[1:n + 1] - starts[:n]).max()) if n else 0
 
 
 def parity_scan_phase(torch, card: str, parity13: dict) -> dict:
@@ -2844,10 +2885,12 @@ def parity_scan_phase(torch, card: str, parity13: dict) -> dict:
     batch and a frame; the path's host syncs (`count_syncs`), none at
     `frontend/parity.py` or `kernels/cuda/parity_scan.py`. (b) the kernel
     against `parity_scan_plain` bit for bit (NaN-equal), `seen` and the
-    mutated maps, on every recorded call of 13a, 13b and (a), and on a
-    synthetic overlap-heavy table. (c) CUPTI ms (one kernel launch a
-    call), stream ms, bound and plain ms of 13b's call and of the batch's.
-    Returns the `kernels` line's parity_scan row."""
+    mutated maps, on every recorded call of 13a, 13b and (a), and on the
+    `synthetic_scans` calls; the longest tile list of each. (c) of 13b's
+    call and the batch's: the kernel's CUPTI ms (one kernel launch a
+    call), the whole call's stream ms (tile lists built), the tile lists
+    and the longest, bound and plain ms. Returns the `kernels` line's
+    parity_scan row."""
     from sift_tpu_torch import SiftConfig, extract_batch
     from sift_tpu_torch.kernels import cuda as kcuda
     from sift_tpu_torch.kernels.cuda import parity_scan as ps
@@ -2906,19 +2949,15 @@ def parity_scan_phase(torch, card: str, parity13: dict) -> dict:
     # (b) the kernel against its plain version on every recorded call
     recorded = {"goldens": parity13["calls"]["goldens"],
                 "frame": parity13["calls"]["frame"], "batch": calls,
-                "synthetic": [synthetic_scan(torch)]}
+                **{k: [c] for k, c in synthetic_scans(torch).items()}}
     kern = ps.parity_scan
     longest = {}
     for label, cs in recorded.items():
         longest[label] = 0
         for maps, *rest in cs:
             table = rest[-1]
-            planes = maps.shape[0] * maps.shape[1] * maps.shape[2]
-            key = ((torch.arange(maps.shape[0], device="cuda")[:, None]
-                    * maps.shape[1] + table[..., 0]) * maps.shape[2]
-                   + table[..., 1])[table[..., 4] != 0]
-            longest[label] = max(longest[label], int(torch.bincount(
-                key, minlength=planes).max()) if key.numel() else 0)
+            longest[label] = max(longest[label],
+                                 tile_lists(ps, maps, table)[1])
             got_maps, want_maps = maps.clone(), maps.clone()
             got = kern(got_maps, *rest)
             want = ps.parity_scan_plain(want_maps, *rest)
@@ -2928,8 +2967,8 @@ def parity_scan_phase(torch, card: str, parity13: dict) -> dict:
                              f"(maps {tuple(maps.shape)}, table "
                              f"{tuple(table.shape)})")
         print(f"phase 17b {label}: {len(cs)} scan calls bit-identical "
-              f"(NaN-equal) to the plain walk, seen and maps; longest plane "
-              f"{longest[label]} slots", flush=True)
+              f"(NaN-equal) to the plain walk, seen and maps; longest tile "
+              f"list {longest[label]} entries", flush=True)
 
     # (c) time, bound and plain time of 13b's call and the batch's
     t = {}
@@ -2944,19 +2983,24 @@ def parity_scan_phase(torch, card: str, parity13: dict) -> dict:
                          f"after a {wait:g} s wait)")
         nbytes, nops = kernel_work("parity_scan", (maps, *rest))
         bound_ms, bound_by = bound(nbytes, nops)
+        lists, longest_list = tile_lists(ps, maps, rest[-1])
         t[label] = {"ms": ms, "ms_stream": event_ms(lambda: kern(work, *rest),
                                                     20),
                     "plain_ms": event_ms(lambda: ps.parity_scan_plain(
                         work, *rest), 3),
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "slots": int(rest[-1][..., 4].count_nonzero())}
+                    "slots": int(rest[-1][..., 4].count_nonzero()),
+                    "lists": lists, "longest": longest_list}
         c = t[label]
         print(f"phase 17c parity_scan per {label}: {c['slots']} ok slots, "
-              f"longest plane {longest[label]}; {c['ms']:.4f} ms (CUPTI, one "
-              f"kernel launch a call, trace whole after a {wait:g} s wait), "
-              f"stream {c['ms_stream']:.4f} ms, bound {c['bound_ms']:.5f} ms "
-              f"({c['bound_by']}), plain {c['plain_ms']:.3f} ms; library: "
-              f"{PARITY_SCAN_LIBRARY}; card {card}", flush=True)
+              f"{lists} tile lists, the longest {longest_list} entries; "
+              f"kernel {c['ms']:.4f} ms (CUPTI, one kernel launch a call, "
+              f"trace whole after a {wait:g} s wait), the whole call "
+              f"{c['ms_stream']:.4f} ms (stream, lists built), bound "
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']}, "
+              f"{100 * c['bound_ms'] / c['ms']:.1f}% of it), plain "
+              f"{c['plain_ms']:.3f} ms; library: {PARITY_SCAN_LIBRARY}; "
+              f"card {card}", flush=True)
     print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     b, f = t["batch"], t["frame"]
     return {
@@ -2967,9 +3011,11 @@ def parity_scan_phase(torch, card: str, parity13: dict) -> dict:
         "timing": "cupti", "plain_ms": b["plain_ms"],
         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
         "library_ms": None, "library": PARITY_SCAN_LIBRARY,
-        "slots": b["slots"], "longest_plane": longest["batch"],
-        "ms_frame": f["ms"], "bound_ms_frame": f["bound_ms"],
+        "slots": b["slots"], "tile_lists": b["lists"],
+        "longest_tile_list": b["longest"], "ms_frame": f["ms"],
+        "ms_stream_frame": f["ms_stream"], "bound_ms_frame": f["bound_ms"],
         "plain_ms_frame": f["plain_ms"], "slots_frame": f["slots"],
+        "tile_lists_frame": f["lists"], "longest_tile_list_frame": f["longest"],
         "launches_goldens": parity13["launches_goldens"],
         "launches_cli": parity13["launches_cli"],
         "parity_batch_ms": batch_ms, "parity_frame_ms": parity13["frame_ms"],
@@ -4181,10 +4227,13 @@ def main() -> int:
     laps = {"1-5": round(time.perf_counter() - t_main, 1)}
 
     def lap(label, fn, *args):
-        """fn(*args), its seconds kept in `laps` under `label`."""
+        """fn(*args), its seconds kept in `laps` under `label` and printed
+        (a run cut short still shows where its time went)."""
         t = time.perf_counter()
         out = fn(*args)
         laps[label] = round(time.perf_counter() - t, 1)
+        print(f"phase {label}: {laps[label]} s, "
+              f"{time.perf_counter() - t_main:.1f} s in all", flush=True)
         return out
     try:
         extraction_err, at_size, pair_kp, row = lap("6", match_phase, torch,

@@ -144,12 +144,13 @@ def kernel_work(name: str, args) -> Tuple[float, float]:
         n = img.numel()
         return n * 4 * 2.0, n * 2.0 * (2 * len(taps) - 1)
     if name == "parity_scan":
-        # both maps' distinct window pixels read once and written once
-        # (the windows of a plane overlap); per ok slot its seen windows
-        # written and its orientation, corner (y0, x0) and order entry
-        # read; each plane that has an ok slot its weight_tl corner, and
-        # the planes' segment starts; one add a window pixel. The slots
-        # without ok cost nothing (their zero seen is the wrapper's).
+        # the function's work, whatever the walk's index layout: both
+        # maps' distinct window pixels read once and written once (the
+        # windows of a plane overlap); per ok slot its seen windows
+        # written and its orientation and corner (y0, x0) read; each
+        # plane that has an ok slot its weight_tl corner; one add a
+        # window pixel. The slots without ok cost nothing (their zero
+        # seen is the wrapper's).
         maps, _, _, table = args
         B, O, Lg, _, H, W = maps.shape
         go, gl, y0, x0, ok = table.long().unbind(-1)
@@ -161,7 +162,6 @@ def kernel_work(name: str, args) -> Tuple[float, float]:
         window = (d[:, None] * W + d).reshape(-1)
         pixels = torch.unique((corner[:, None] + window).reshape(-1)).numel()
         n_ok = plane.numel()
-        return (pixels * 2 * 4 * 2 + n_ok * (2048 + 4 + 8 + 8)
-                + torch.unique(plane).numel() * 1024
-                + (B * O * Lg + 1) * 8), n_ok * 512.0
+        return (pixels * 2 * 4 * 2 + n_ok * (2048 + 4 + 8)
+                + torch.unique(plane).numel() * 1024), n_ok * 512.0
     raise ValueError(f"no work formula for kernel {name!r}")

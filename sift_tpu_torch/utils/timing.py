@@ -61,8 +61,9 @@ def event_ms(fn: Callable, reps: int) -> float:
 
 
 # Seconds a `kernel_trace` session waits after its last kernel before it
-# stops, attempt by attempt, until the trace holds every launch.
-TRACE_WAITS = (0.0, 2.5, 5.0)
+# stops, attempt by attempt, until the trace holds every launch (on the
+# H100, traces after many large sessions have lacked a record past 5 s).
+TRACE_WAITS = (0.0, 2.5, 5.0, 10.0, 20.0)
 
 
 def profiled(fn: Callable, activities) -> tuple:

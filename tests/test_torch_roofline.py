@@ -89,10 +89,10 @@ def test_work_of_the_blur():
 def test_work_of_the_parity_scan(second, pixels, planes):
     """Two ok slots of three, in a batch of 2 images x 3 x 4 planes: the
     maps' distinct window pixels are read and written once in both maps,
-    each ok slot writes its 2,048 bytes of seen and reads 20 bytes
-    (orientation, corner, order entry) and does 512 adds, each plane with
-    an ok slot reads its 1,024 bytes of weight_tl, and the planes'
-    segment starts are read once."""
+    each ok slot writes its 2,048 bytes of seen and reads 12 bytes
+    (orientation, corner) and does 512 adds, and each plane with an ok
+    slot reads its 1,024 bytes of weight_tl; nothing of the walk's index
+    lists counts."""
     maps = torch.zeros((2, 3, 4, 2, 20, 24))
     wtl, ori = torch.zeros((2, 3, 4, 16, 16)), torch.zeros((2, 3))
     table = torch.zeros((2, 3, 5), dtype=torch.int32)
@@ -100,7 +100,7 @@ def test_work_of_the_parity_scan(second, pixels, planes):
     b, i, y0, x0, _ = second
     table[b, i] = torch.tensor([0, 0, y0, x0, 1], dtype=torch.int32)
     assert rl.kernel_work("parity_scan", (maps, wtl, ori, table)) == \
-        (pixels * 16 + 2 * 2068 + planes * 1024 + 25 * 8, 2 * 512.0)
+        (pixels * 16 + 2 * 2060 + planes * 1024, 2 * 512.0)
 
 
 def test_work_of_the_refine_walk():
@@ -139,7 +139,8 @@ def test_timing_needs_the_card(call, monkeypatch):
 @pytest.mark.parametrize("launches,seen,want", [
     (1, {0.0: 5, 2.5: 5}, (2.0, 1.0, 0.0, [0.0])),    # whole at once
     (1, {0.0: 3, 2.5: 5}, (2.0, 1.0, 2.5, [0.0, 2.5])),  # two records late
-    (1, {0.0: 0, 2.5: 0, 5.0: 4}, (None, 0.8, 5.0, [0.0, 2.5, 5.0])),
+    (1, {0.0: 0, 2.5: 0, 5.0: 4, 10.0: 4, 20.0: 3},
+     (None, 0.6, 20.0, [0.0, 2.5, 5.0, 10.0, 20.0])),
     (None, {0.0: 9, 2.5: 10}, (2.0, 2.0, 2.5, [0.0, 2.5])),  # two a call
     (2, {0.0: 5, 2.5: 10}, (2.0, 2.0, 2.5, [0.0, 2.5])),  # 5: whole for 1
 ])
