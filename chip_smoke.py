@@ -226,6 +226,15 @@ Phases, each fatal on failure:
      batch's: the kernel's CUPTI ms (one kernel launch a call), the whole
      call's stream ms (tile lists built), the tile lists and the longest,
      bound and plain ms.
+  18. (run right after phase 16) the public frontend API on phase 5's
+     batch, each call counted: (a) `gather_window` on image 0's octave-0
+     gradient map at its valid keypoints and 64 starts on and past every
+     edge and corner, one window-kernel launch, bit-identical to plain;
+     (b) `descriptors_from_windows` on the main path's 48x48 windows of
+     those keypoints, one descriptor-kernel launch, within 1e-3 of plain
+     and bit-identical to `descriptors_from_windows_multi`'s peak 0; (c)
+     `detect_extrema` on the batch's pyramid, card against CPU bit for
+     bit; each launch's CUPTI ms, stream, bound and plain ms.
 Every path's launch counts are read by `hold_launches`: the four TPU
 kernels' ports and the parity scan exactly as each phase expects (the
 scan once a parity batch, never in lowe mode), and the blur at least once
@@ -237,7 +246,8 @@ the twoview path as `launches_twoview`, on phase 9b's sequence as
 `launches_chunked`, on phase 12b's as `launches_stereo` and on phase
 13c's as `launches_subpixel`, with 13c's times as `*_subpixel`, and on
 phase 14a's three requests and 14c's match as `launches_serve`, and on
-phase 15's dist paths (a), (b) and (e) as `launches_dist`; the blur's
+phase 15's dist paths (a), (b) and (e) as `launches_dist`, and on phase
+18's calls as `launches_public`, with 18's times as `*_public`; the blur's
 row, its times per phase 5 batch and per phase 6 pair; the parity
 scan's row last, its times per phase 17's batch and 13b's frame), the
 card line, and as its last
@@ -532,6 +542,18 @@ BLUR_REPLACES = ("none: sift_tpu/kernels/gaussian.py:72,128 blurs by XLA's "
                  "conv_general_dilated or einsum (no pallas_call)")
 KP_FIELDS = ("x", "y", "octave", "level", "scale", "score", "orientation",
              "valid", "desc", "n_dropped", "n_cand_pruned")
+# Phase 18: the public frontend API on phase 5's batch. (a) `gather_window`
+# (r = 8) on image 0's octave-0 gradient map: every valid keypoint of
+# image 0 at its octave-0 pixel, and the 8 x 8 = 64 starts of
+# `public_edges` (rows x columns).
+# The descriptor's f32 operations a window pixel for one peak: magnitude
+# and angle 20, the peak's 62 (utils/roofline.py's DESC_OPS_PER_PIXEL
+# counts 20 + 2 x 62 for the kernel's two).
+DESC_OPS_ONE_PEAK = 82
+# Each phase 18 call launches one hand kernel, or none.
+PUBLIC_LAUNCHES = {"gather_window": "gather_windows",
+                   "descriptors_from_windows": "descriptor_accumulate",
+                   "detect_extrema": None}
 
 
 def make_frames(batch: int, h: int = HEIGHT, w: int = WIDTH) -> np.ndarray:
@@ -4020,6 +4042,220 @@ def blur_phase(torch, card: str, frames_np, main_blurs: int, kf_s: float,
     }
 
 
+def public_edges(n: int) -> list:
+    """8 window centres on and past both edges of an axis of n pixels: with
+    those of the other axis, all four edges and corners. As in
+    `lax.dynamic_slice`, a start past the near edge by less than n counts
+    from the far end, and one past it by more is clamped to 0."""
+    return [-n - 2, -5, 0, 7, n - 8, n - 1, n, n + 5]
+
+
+@contextlib.contextmanager
+def plain_extraction_kernels():
+    """The window gather and the descriptor pass replaced by their plain
+    versions (on the card's tensors) inside the block."""
+    from sift_tpu_torch.kernels.cuda import descriptor, windows
+    swaps = [(windows, "gather_windows", windows.gather_windows_plain),
+             (descriptor, "descriptor_accumulate",
+              descriptor.descriptor_accumulate_plain)]
+    originals = [getattr(mod, attr) for mod, attr, _ in swaps]
+    for mod, attr, fn in swaps:
+        setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        for (mod, attr, _), fn in zip(swaps, originals):
+            setattr(mod, attr, fn)
+
+
+def public_call(torch, label: str, fn):
+    """fn() with the counts set to 0 just before and read just after, the
+    hand kernel it must launch (PUBLIC_LAUNCHES) recorded. Returns (its
+    result, the counts, the kernel's recorded arguments)."""
+    from sift_tpu_torch.kernels import cuda as kcuda
+    name = PUBLIC_LAUNCHES[label]
+    targets = {name: extraction_kernels()[name]} if name else {}
+    with recording(targets) as (recorded, _):
+        kcuda.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = kcuda.launch_counts()
+    want = {k: int(k == name) for k in launches}
+    if launches != want:
+        raise Failed(f"phase 18 {label} launch counts {launches} != {want}")
+    return out, launches, recorded.get(name, [])
+
+
+def public_timing(label: str, fn, args) -> dict:
+    """The CUPTI ms of fn's one kernel launch, its stream ms, the plain
+    version's ms (`plain_extraction_kernels`) and the kernel's bound on its
+    recorded arguments."""
+    name = PUBLIC_LAUNCHES[label]
+    ms, seen, wait = kernel_trace(fn, KERNEL_SYMBOLS[name], 20)
+    if ms is None:
+        raise Failed(f"phase 18 {label}: no whole CUPTI trace ({seen:g} "
+                     "launches a call in the last)")
+    with plain_extraction_kernels():
+        plain_ms = event_ms(fn, 3)
+    bound_ms, bound_by = bound(*kernel_work(name, args))
+    return {"ms": ms, "ms_stream": event_ms(fn, 20), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "cupti_wait_s": wait}
+
+
+def public_api_phase(torch, card: str, frames, kp, cfg) -> tuple:
+    """Phase 18: the public frontend API on phase 5's batch `frames` and
+    its keypoints `kp`, each call with the counts set to 0 just before and
+    read just after (`public_call`). (a) `gather_window` on image 0's
+    octave-0 gradient map (dx of level 1, in the main path's window dtype)
+    at every valid keypoint of image 0 and the PUBLIC_EDGE starts: one
+    window-kernel launch, bit-identical to the plain version. (b)
+    `descriptors_from_windows` on the main path's 48x48 windows of those
+    keypoints (`gather_gradient_windows` on each octave's maps, all
+    octaves in one call) at each keypoint's orientation: one
+    descriptor-kernel launch; raw histograms within
+    `descriptor.TOLERANCE` of the plain version's and descriptors within
+    1e-3 of the largest, bit-identical to `descriptors_from_windows_multi`
+    's peak 0 fed the orientation in both slots, and within phase 5's 2e-3
+    of the main path's own descriptors. (c) `detect_extrema` on the
+    batch's card pyramid against the same pyramid copied to the CPU: every
+    field bit for bit; no kernel launched. Prints each kernel's CUPTI ms a
+    launch beside the card. Returns ({kernel: launches over (a)-(c)},
+    {kernel: timing})."""
+    from sift_tpu_torch.frontend import extrema, orientation, windows
+    from sift_tpu_torch.frontend.pyramid import Pyramid, build_pyramid
+    from sift_tpu_torch.frontend.sift import _gradient_xy
+    from sift_tpu_torch.kernels.cuda import descriptor
+    from sift_tpu_torch.utils.device import constant
+    t_phase = time.perf_counter()
+    dev = frames.device
+    pyr = build_pyramid(frames, cfg)
+    kpn = kp.to_numpy()
+    valid = kpn.valid[0]
+    totals, timing = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # (a) gather_window
+    g0 = pyr.gauss[0][0]
+    H, W = g0.shape[-2:]
+    gmap = _gradient_xy(g0)[0][1].to(getattr(torch, cfg.window_dtype))
+    scale = 2.0 ** kpn.octave[0][valid]
+    ky = np.floor(kpn.y[0][valid] * scale).astype(np.int32)
+    kx = np.floor(kpn.x[0][valid] * scale).astype(np.int32)
+    ey, ex = np.meshgrid(public_edges(H), public_edges(W), indexing="ij")
+    y = torch.from_numpy(np.concatenate([ky, ey.reshape(-1)]).astype(
+        np.int32)).to(dev)
+    x = torch.from_numpy(np.concatenate([kx, ex.reshape(-1)]).astype(
+        np.int32)).to(dev)
+
+    def gather():
+        return orientation.gather_window(gmap, y, x)
+    got, counts, args = public_call(torch, "gather_window", gather)
+    add(counts)
+    with plain_extraction_kernels():
+        want = gather()
+    if got.shape != (y.numel(), 16, 16) or not torch.equal(got, want):
+        raise Failed("phase 18a gather_window differs from its plain version")
+    timing["gather_windows"] = public_timing("gather_window", gather, args[0])
+    t = timing["gather_windows"]
+    print(f"phase 18a gather_window: {ky.size} keypoints + {ey.size} edge "
+          f"starts of a {H}x{W} {cfg.window_dtype} map, bit-identical to "
+          f"plain; 1 kernel launch {t['ms']:.4f} ms (CUPTI, trace whole "
+          f"after a {t['cupti_wait_s']:g} s wait), stream "
+          f"{t['ms_stream']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+          f"({t['bound_by']}), plain {t['plain_ms']:.3f} ms; card {card}",
+          flush=True)
+
+    # (b) descriptors_from_windows on the main path's windows
+    octave_factor = cfg.k ** (cfg.dogs_per_epoch - 1)
+    parts = []
+    for o in range(pyr.num_octaves):
+        sel = torch.from_numpy(np.flatnonzero(
+            valid & (kpn.octave[0] == o))).to(dev)
+        if not sel.numel():
+            continue
+        g = pyr.gauss[o][0]
+        Ho, Wo = g.shape[-2:]
+        r_eff = min(windows.R_DESC, Ho // 2, Wo // 2)
+        if r_eff != windows.R_DESC:
+            raise Failed(f"phase 18b: octave {o} ({Ho}x{Wo}) has no 48x48 "
+                         "windows")
+        sw = kp.scale[0][sel] / constant(octave_factor ** o, dev)
+        gl = torch.argmin((constant(pyr.gauss_sigmas[o], dev)
+                           - sw[:, None]).abs(), dim=-1)
+        dxm, dym = _gradient_xy(g)
+        wins, oy0, ox0 = windows.gather_gradient_windows(
+            dxm, dym, gl, kp.y[0][sel], kp.x[0][sel], radius=r_eff,
+            dtype=cfg.window_dtype)
+        parts.append((wins, oy0, ox0, kp.orientation[0][sel], sw))
+    wins, oy0, ox0, ori, sw = (torch.cat(c) for c in zip(*parts))
+    dargs = (wins[:, 0], wins[:, 1], oy0, ox0, ori, sw, cfg)
+
+    def describe():
+        return windows.descriptors_from_windows(*dargs)
+    got, counts, args = public_call(torch, "descriptors_from_windows",
+                                    describe)
+    add(counts)
+    raw_err, raw_rel = hold_extraction_kernel(
+        torch, descriptor.TOLERANCE, "descriptor_accumulate",
+        descriptor.descriptor_accumulate(*args[0]),
+        descriptor.descriptor_accumulate_plain(*args[0]))
+    with plain_extraction_kernels():
+        want = describe()
+    err = float((got - want).abs().max())
+    if got.shape != (ori.numel(), 128) or \
+            err > 1e-3 * float(want.abs().max()):
+        raise Failed(f"phase 18b descriptors_from_windows: {err} from plain")
+    multi = windows.descriptors_from_windows_multi(
+        wins, oy0, ox0, torch.stack([ori, ori], dim=1), sw, cfg)[:, 0]
+    if not torch.equal(got, multi):
+        raise Failed("phase 18b descriptors_from_windows differs from the "
+                     "two-peak call's peak 0")
+    main_err = float(np.abs(got.cpu().numpy() - kpn.desc[0][valid]).max())
+    if main_err > 2e-3:
+        raise Failed(f"phase 18b: {main_err} from the main path's "
+                     "descriptors")
+    t = public_timing("descriptors_from_windows", describe, args[0])
+    n, d = wins.shape[0], wins.shape[-1]
+    t["bound_ms_one_peak"], t["bound_by_one_peak"] = bound(
+        n * (2 * d * d * 4 + descriptor.N_SCAL * 4 + 128 * 4),
+        n * d * d * float(DESC_OPS_ONE_PEAK))
+    timing["descriptor_accumulate"] = t
+    print(f"phase 18b descriptors_from_windows: {n} keypoints of image 0, "
+          f"raw within {raw_rel:.3g} of the largest bin ({raw_err:.3g}), "
+          f"descriptors {err:.3g} from plain, bit-identical to the two-peak "
+          f"call's peak 0, {main_err:.3g} from the main path's; 1 kernel "
+          f"launch {t['ms']:.4f} ms (CUPTI, two peaks' work, trace whole "
+          f"after a {t['cupti_wait_s']:g} s wait), stream "
+          f"{t['ms_stream']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+          f"({t['bound_by']}; one peak's {t['bound_ms_one_peak']:.5f}), "
+          f"plain {t['plain_ms']:.3f} ms; card {card}", flush=True)
+
+    # (c) detect_extrema, card against the same pyramid on the CPU
+    found, counts, _ = public_call(torch, "detect_extrema",
+                                   lambda: extrema.detect_extrema(pyr, cfg))
+    add(counts)
+    cpu = extrema.detect_extrema(Pyramid(
+        gauss=[g.cpu() for g in pyr.gauss], dogs=[g.cpu() for g in pyr.dogs],
+        gauss_sigmas=pyr.gauss_sigmas, dog_sigmas=pyr.dog_sigmas,
+        abs_sigmas=pyr.abs_sigmas), cfg)
+    n_slots = sum(cfg.octave_cap(o) for o in range(pyr.num_octaves))
+    for f, v in cpu.items():
+        if not torch.equal(found[f].cpu(), v):
+            raise Failed(f"phase 18c detect_extrema: {f} differs between "
+                         "the card and the CPU")
+    if found["x"].shape != (frames.shape[0], n_slots):
+        raise Failed(f"phase 18c detect_extrema: x {tuple(found['x'].shape)}")
+    print(f"phase 18c detect_extrema: {int(cpu['valid'].sum())} candidates "
+          f"in {frames.shape[0]} x {n_slots} slots, n_dropped "
+          f"{cpu['n_dropped'].tolist()}, every field bit-identical to the "
+          f"CPU's; phase 18 launches {totals}; took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals, timing
+
+
 def finish(torch, card: str) -> int:
     """Print the card line and, as the last line, the result."""
     print(f"card: {card}", flush=True)
@@ -4240,6 +4476,8 @@ def main() -> int:
                                                     card)
         blur_row = lap("16", blur_phase, torch, card, frames_np,
                        launches["blur"], BATCH / batch_s, row["pairs_per_s"])
+        public_launches, public_times = lap("18", public_api_phase, torch,
+                                              card, frames, kp, cfg)
     except Failed as e:
         return fail(str(e))
     # 7. the two-view path; 8. bundle adjustment
@@ -4282,6 +4520,9 @@ def main() -> int:
         r.update({f"{k}_subpixel": v
                   for k, v in sub_timing[r["name"]].items()})
         r[f"max_abs_err_{size}"] = extraction_err[r["name"]]
+        r["launches_public"] = public_launches[r["name"]]
+        r.update({f"{k}_public": v
+                  for k, v in public_times.get(r["name"], {}).items()})
         if r["name"] in at_size:
             t = at_size[r["name"]]
             r.update({f"ms_{size}": t["ms"],
@@ -4301,6 +4542,7 @@ def main() -> int:
     row["max_abs_err_serve"] = serve_err["streaming_top2"]
     row["launches_dist"] = dist_launches["streaming_top2"]
     row["max_abs_err_dist"] = dist_err["streaming_top2"]
+    row["launches_public"] = public_launches["streaming_top2"]
     rows.append(row)
     for key, counts in (("twoview", twoview_launches), ("sfm", sfm_launches),
                         ("loop", loop_launches),
@@ -4309,8 +4551,10 @@ def main() -> int:
                         ("subpixel", sub_launches), ("serve", serve_launches),
                         ("dist", dist_launches)):
         blur_row[f"launches_{key}"] = counts["blur"]
+    blur_row["launches_public"] = public_launches["blur"]
     rows.append(blur_row)
     scan_row["launches_serve_parity"] = serve_launches["parity_scan"]
+    scan_row["launches_public"] = public_launches["parity_scan"]
     rows.append(scan_row)
     print(json.dumps({"kernels": rows}), flush=True)
     return finish(torch, card)

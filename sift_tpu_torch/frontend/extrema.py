@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from sift_tpu_torch.config import SiftConfig
+from sift_tpu_torch.frontend.pyramid import Pyramid
+from sift_tpu_torch.utils.device import constant
 
 
 def _window_extreme(x: torch.Tensor, is_max: bool,
@@ -98,3 +100,26 @@ def detect_extrema_octave(dogs: torch.Tensor, cfg: SiftConfig, octave: int = 0):
     rem = top_idx % (H * W)
     return ((rem % W).to(torch.float32), (rem // W).to(torch.float32),
             lvl.to(torch.int32), top_scores, valid, n_pruned)
+
+
+def detect_extrema(pyr: Pyramid, cfg: SiftConfig) -> dict:
+    """`detect_extrema_octave` over every octave of a `Pyramid`, the
+    buffers concatenated: a dict of (B, octaves * K) tensors x, y, octave,
+    level, scale (the recorded DoG sigma of the keypoint's level), score,
+    valid, and n_dropped (B,) int32, the candidates beyond the caps summed
+    over the octaves."""
+    fields = {f: [] for f in ("x", "y", "octave", "level", "scale", "score",
+                              "valid")}
+    dropped = None
+    for o in range(pyr.num_octaves):
+        x, y, lvl, score, valid, n_drop = detect_extrema_octave(
+            pyr.dogs[o], cfg, o)
+        table = constant(pyr.dog_sigmas[o], lvl.device)
+        for f, v in (("x", x), ("y", y), ("octave", torch.full_like(lvl, o)),
+                     ("level", lvl), ("scale", table[lvl]), ("score", score),
+                     ("valid", valid)):
+            fields[f].append(v)
+        dropped = n_drop if dropped is None else dropped + n_drop
+    out = {f: torch.cat(v, dim=1) for f, v in fields.items()}
+    out["n_dropped"] = dropped
+    return out

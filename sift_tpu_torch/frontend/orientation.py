@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from sift_tpu_torch.frontend.extrema import top_k_stable
+from sift_tpu_torch.kernels.cuda import windows as window_kernel
 from sift_tpu_torch.kernels.histogram import parabola_vertex
 from sift_tpu_torch.utils.device import constant
 
@@ -32,6 +33,40 @@ def nearest_gaussian_index(scale: torch.Tensor, gauss_sigmas: np.ndarray):
     idx = torch.argmin(diffs, dim=-1)        # first occurrence wins
     n_levels = gauss_sigmas.shape[1]
     return idx // n_levels, idx % n_levels
+
+
+def gather_window(stack_2d: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                  radius: int = R) -> torch.Tensor:
+    """The (2r, 2r) windows [y-r, y+r) x [x-r, x+r) of a float32 or
+    bfloat16 (H, W) map at integer positions y, x of any shape, as float32
+    (..., 2r, 2r).
+
+    The starts follow `lax.dynamic_slice`: a negative start counts from
+    the far end (start + H), then every start is clamped into [0, H-2r]
+    (columns alike). So a window past the far edge moves inside the map,
+    and one past the near edge by less than the map's size moves to the
+    far edge. A window wider than the map raises. On the card one launch
+    of the window gather kernel (C = 1, one level) takes every window;
+    its zeros past the edge are never read."""
+    H, W = stack_2d.shape
+    d = 2 * radius
+    if d > H or d > W:
+        raise ValueError(f"gather_window: a {d}x{d} window does not fit "
+                         f"a {H}x{W} map")
+    if stack_2d.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gather_window: map dtype {stack_2d.dtype}")
+    if y.is_floating_point() or x.is_floating_point():
+        raise TypeError("gather_window: y and x must be integer tensors")
+    shape = y.shape
+
+    def starts(c, n):
+        s = c.reshape(-1).to(torch.int32) - radius
+        return torch.where(s < 0, s + n, s).clamp(0, n - d)
+    y0, x0 = starts(y, H), starts(x, W)
+    gl = torch.zeros_like(y0)
+    wins = window_kernel.gather_windows(stack_2d.contiguous()[None, None],
+                                        gl, y0, x0, d)
+    return wins.reshape(*shape, d, d)
 
 
 def parity_bounds_ok(x, y, widths, heights):

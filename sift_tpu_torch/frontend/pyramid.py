@@ -51,6 +51,10 @@ class Pyramid:
     def num_octaves(self) -> int:
         return len(self.gauss)
 
+    @property
+    def levels_per_octave(self) -> int:
+        return self.gauss[0].shape[-3]
+
 
 def parity_sigma_schedule(cfg: SiftConfig):
     """(gauss_sigmas, dog_sigmas): the reference's recorded sigmas as

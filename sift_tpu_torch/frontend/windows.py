@@ -103,6 +103,21 @@ def _finalize_descriptor(desc: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
     return desc / norm.clamp_min(1e-7)
 
 
+def descriptors_from_windows(gx, gy, oy0, ox0, orientation_deg, sigma_within,
+                             cfg: SiftConfig) -> torch.Tensor:
+    """One descriptor per keypoint at one orientation: (K, 128).
+
+    gx, gy: (K, d, d) gradient windows; oy0, ox0: offsets of window pixel
+    (0, 0) from the keypoint; orientation_deg, sigma_within: (K,). The
+    descriptor kernel always computes two peaks, so the orientation goes
+    in both and peak 0 is kept: bit for bit `descriptors_from_windows_multi`
+    's peak 0, at twice the histogram work of one peak."""
+    wins = torch.stack([gx, gy], dim=1).to(torch.float32).contiguous()
+    peaks = torch.stack([orientation_deg, orientation_deg], dim=1)
+    return descriptors_from_windows_multi(wins, oy0, ox0, peaks, sigma_within,
+                                          cfg)[:, 0].contiguous()
+
+
 def descriptors_from_windows_multi(wins, oy0, ox0, peak_oris, sigma_within,
                                    cfg: SiftConfig) -> torch.Tensor:
     """Descriptors for both orientation peaks of each keypoint: (K, 2, 128).

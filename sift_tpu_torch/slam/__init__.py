@@ -3,5 +3,6 @@
 (`slam/pose_graph.py`)."""
 
 from sift_tpu_torch.slam.pipeline import Keyframe, SfmPipeline
+from sift_tpu_torch.slam.pose_graph import PoseGraph, optimize_pose_graph
 
-__all__ = ["SfmPipeline", "Keyframe"]
+__all__ = ["SfmPipeline", "Keyframe", "PoseGraph", "optimize_pose_graph"]

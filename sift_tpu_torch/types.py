@@ -62,6 +62,27 @@ class Keypoints:
         div = 2.0 if subpixel else 1.0
         return self.x * factor / div, self.y * factor / div
 
+    def filtered(self, keep: torch.Tensor) -> "Keypoints":
+        """A copy with `valid &= keep` (no compaction, so masks compose)."""
+        return dataclasses.replace(self, valid=self.valid & keep)
+
+
+def empty_keypoints(capacity: int, with_desc: bool = False,
+                    device="cuda") -> Keypoints:
+    """`capacity` zeroed, invalid slots on `device` (the card unless the
+    caller passes "cpu"): float32 positions, scale, score and orientation,
+    int32 octave and level, and a (capacity, 128) float32 `desc` or None."""
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return Keypoints(
+        x=zeros(capacity), y=zeros(capacity),
+        octave=zeros(capacity, dtype=torch.int32),
+        level=zeros(capacity, dtype=torch.int32),
+        scale=zeros(capacity), score=zeros(capacity),
+        orientation=zeros(capacity),
+        valid=zeros(capacity, dtype=torch.bool),
+        desc=zeros(capacity, 128) if with_desc else None)
+
 
 def _to_numpy(obj):
     return type(obj)(**{f.name: getattr(obj, f.name).detach().cpu().numpy()
