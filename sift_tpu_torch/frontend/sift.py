@@ -35,6 +35,7 @@ from sift_tpu_torch.frontend.windows import (
 )
 from sift_tpu_torch.types import Keypoints
 from sift_tpu_torch.utils.device import constant
+from sift_tpu_torch.utils.metrics import stage
 
 MAX_ORI_PEAKS = 2
 
@@ -64,10 +65,14 @@ def _resolve_device(device, cfg: SiftConfig) -> torch.device:
 
 def extract_lowe_batched(imgs: torch.Tensor, cfg: SiftConfig,
                          with_descriptors: bool = True) -> Keypoints:
-    """Batch-flattened lowe extraction over a (B, H, W) float32 tensor."""
+    """Batch-flattened lowe extraction over a (B, H, W) float32 tensor.
+
+    Spans (`utils/metrics.py::stage`): pyramid; per octave, with field
+    `octave`, extrema, refine, gradients, orientation, descriptor; select."""
     B = imgs.shape[0]
     dev = imgs.device
-    pyr = build_pyramid(imgs, cfg)
+    with stage("pyramid"):
+        pyr = build_pyramid(imgs, cfg)
     octave_factor = cfg.k ** (cfg.dogs_per_epoch - 1)
     fields = ["x", "y", "octave", "level", "scale", "score", "orientation",
               "valid"]
@@ -78,82 +83,93 @@ def extract_lowe_batched(imgs: torch.Tensor, cfg: SiftConfig,
     P = MAX_ORI_PEAKS
 
     for o in range(pyr.num_octaves):
-        x, y, lvl, score, valid, n_pruned = detect_extrema_octave(
-            pyr.dogs[o], cfg, o)                          # fields (B, K)
-        cand_pruned = cand_pruned + n_pruned
-        cand = dict(x=x, y=y, level=lvl, score=score, valid=valid)
-        cand = refine_octave_lowe(pyr.dogs[o], cand, cfg, pyr.dog_sigmas, o,
-                                  octave_factor)
+        with stage("extrema", octave=o):
+            x, y, lvl, score, valid, n_pruned = detect_extrema_octave(
+                pyr.dogs[o], cfg, o)                      # fields (B, K)
+            cand_pruned = cand_pruned + n_pruned
+        with stage("refine", octave=o):
+            cand = dict(x=x, y=y, level=lvl, score=score, valid=valid)
+            cand = refine_octave_lowe(pyr.dogs[o], cand, cfg, pyr.dog_sigmas,
+                                      o, octave_factor)
 
-        g = pyr.gauss[o]                                  # (B, L1, H, W)
-        L1, H, W = g.shape[-3:]
-        K = cand["x"].shape[1]
-        dxm, dym = _gradient_xy(g)
-        sigma_within = cand["scale"] / constant(octave_factor ** o, dev)
-        table = constant(pyr.gauss_sigmas[o], dev)
-        gl = torch.argmin((table - sigma_within[..., None]).abs(), dim=-1)
-        in_bounds = ((cand["x"] >= R_ORI) & (cand["x"] < W - R_ORI)
-                     & (cand["y"] >= R_ORI) & (cand["y"] < H - R_ORI))
+        with stage("gradients", octave=o):
+            g = pyr.gauss[o]                              # (B, L1, H, W)
+            L1, H, W = g.shape[-3:]
+            K = cand["x"].shape[1]
+            dxm, dym = _gradient_xy(g)
+            sigma_within = cand["scale"] / constant(octave_factor ** o, dev)
+            table = constant(pyr.gauss_sigmas[o], dev)
+            gl = torch.argmin((table - sigma_within[..., None]).abs(), dim=-1)
+            in_bounds = ((cand["x"] >= R_ORI) & (cand["x"] < W - R_ORI)
+                         & (cand["y"] >= R_ORI) & (cand["y"] < H - R_ORI))
 
-        sw_f = sigma_within.reshape(B * K)
-        ib_f = in_bounds.reshape(B * K)
-        r_eff = min(R_DESC, H // 2, W // 2)
-        if r_eff < R_ORI:
-            peak_oris = torch.zeros((B * K, P), dtype=torch.float32, device=dev)
-            peak_valid = torch.zeros((B * K, P), dtype=torch.bool, device=dev)
-            wins = torch.zeros((B * K, 2, 2 * R_ORI, 2 * R_ORI),
-                               dtype=torch.float32, device=dev)
-            oy0 = torch.zeros((B * K,), dtype=torch.float32, device=dev)
-            ox0 = torch.zeros_like(oy0)
-        else:
-            gl_f = (gl + torch.arange(B, device=dev)[:, None] * L1).reshape(B * K)
-            wins, oy0, ox0 = gather_gradient_windows(
-                dxm.reshape(B * L1, H, W), dym.reshape(B * L1, H, W), gl_f,
-                cand["y"].reshape(B * K), cand["x"].reshape(B * K),
-                radius=r_eff, dtype=cfg.window_dtype)
-            peak_oris, peak_valid = orientation_from_windows(
-                wins[:, 0], wins[:, 1], oy0, ox0, sw_f, ib_f, cfg, P)
+        with stage("orientation", octave=o):
+            sw_f = sigma_within.reshape(B * K)
+            ib_f = in_bounds.reshape(B * K)
+            r_eff = min(R_DESC, H // 2, W // 2)
+            if r_eff < R_ORI:
+                peak_oris = torch.zeros((B * K, P), dtype=torch.float32,
+                                        device=dev)
+                peak_valid = torch.zeros((B * K, P), dtype=torch.bool,
+                                         device=dev)
+                wins = torch.zeros((B * K, 2, 2 * R_ORI, 2 * R_ORI),
+                                   dtype=torch.float32, device=dev)
+                oy0 = torch.zeros((B * K,), dtype=torch.float32, device=dev)
+                ox0 = torch.zeros_like(oy0)
+            else:
+                gl_f = (gl + torch.arange(B, device=dev)[:, None] * L1
+                        ).reshape(B * K)
+                wins, oy0, ox0 = gather_gradient_windows(
+                    dxm.reshape(B * L1, H, W), dym.reshape(B * L1, H, W),
+                    gl_f, cand["y"].reshape(B * K), cand["x"].reshape(B * K),
+                    radius=r_eff, dtype=cfg.window_dtype)
+                peak_oris, peak_valid = orientation_from_windows(
+                    wins[:, 0], wins[:, 1], oy0, ox0, sw_f, ib_f, cfg, P)
 
-        def rep(a):                      # (B, K) -> (B, K*P), peak-major
-            return torch.repeat_interleave(a, P, dim=1)
+            def rep(a):                  # (B, K) -> (B, K*P), peak-major
+                return torch.repeat_interleave(a, P, dim=1)
 
-        dup = dict(
-            x=rep(cand["x"]), y=rep(cand["y"]),
-            octave=torch.full((B, K * P), o, dtype=torch.int32, device=dev),
-            level=rep(cand["level"]), scale=rep(cand["scale"]),
-            score=rep(cand["score"]),
-            orientation=peak_oris.reshape(B, K * P),
-            valid=rep(cand["valid"] & in_bounds) & peak_valid.reshape(B, K * P),
-        )
+            dup = dict(
+                x=rep(cand["x"]), y=rep(cand["y"]),
+                octave=torch.full((B, K * P), o, dtype=torch.int32,
+                                  device=dev),
+                level=rep(cand["level"]), scale=rep(cand["scale"]),
+                score=rep(cand["score"]),
+                orientation=peak_oris.reshape(B, K * P),
+                valid=(rep(cand["valid"] & in_bounds)
+                       & peak_valid.reshape(B, K * P)),
+            )
         if with_descriptors:
-            dm = descriptors_from_windows_multi(wins, oy0, ox0, peak_oris,
-                                                sw_f, cfg)
-            descs.append(dm.reshape(B, K * P, -1))
+            with stage("descriptor", octave=o):
+                dm = descriptors_from_windows_multi(wins, oy0, ox0, peak_oris,
+                                                    sw_f, cfg)
+                descs.append(dm.reshape(B, K * P, -1))
         for f in fields:
             buffers[f].append(dup[f])
 
-    kp = {f: torch.cat(buffers[f], dim=1) for f in fields}
-    desc = torch.cat(descs, dim=1) if with_descriptors else None
+    with stage("select"):
+        kp = {f: torch.cat(buffers[f], dim=1) for f in fields}
+        desc = torch.cat(descs, dim=1) if with_descriptors else None
 
-    N = min(cfg.max_keypoints, kp["score"].shape[1])
-    rank_score = torch.where(kp["valid"], kp["score"], float("-inf"))
-    top_scores, idx = top_k_stable(rank_score, N)
+        N = min(cfg.max_keypoints, kp["score"].shape[1])
+        rank_score = torch.where(kp["valid"], kp["score"], float("-inf"))
+        top_scores, idx = top_k_stable(rank_score, N)
 
-    def take(a):
-        return torch.gather(a, 1, idx)
+        def take(a):
+            return torch.gather(a, 1, idx)
 
-    out_valid = take(kp["valid"]) & torch.isfinite(top_scores)
-    dropped = dropped + (kp["valid"].sum(dim=1) - out_valid.sum(dim=1)
-                         ).clamp_min(0).to(torch.int32)
-    return Keypoints(
-        x=take(kp["x"]), y=take(kp["y"]), octave=take(kp["octave"]),
-        level=take(kp["level"]), scale=take(kp["scale"]),
-        score=take(kp["score"]), orientation=take(kp["orientation"]),
-        valid=out_valid,
-        desc=(torch.gather(desc, 1, idx[..., None].expand(-1, -1, 128))
-              if desc is not None else None),
-        n_dropped=dropped, n_cand_pruned=cand_pruned,
-    )
+        out_valid = take(kp["valid"]) & torch.isfinite(top_scores)
+        dropped = dropped + (kp["valid"].sum(dim=1) - out_valid.sum(dim=1)
+                             ).clamp_min(0).to(torch.int32)
+        return Keypoints(
+            x=take(kp["x"]), y=take(kp["y"]), octave=take(kp["octave"]),
+            level=take(kp["level"]), scale=take(kp["scale"]),
+            score=take(kp["score"]), orientation=take(kp["orientation"]),
+            valid=out_valid,
+            desc=(torch.gather(desc, 1, idx[..., None].expand(-1, -1, 128))
+                  if desc is not None else None),
+            n_dropped=dropped, n_cand_pruned=cand_pruned,
+        )
 
 
 def extract_batch(imgs, cfg: SiftConfig = SiftConfig(),
@@ -164,12 +180,15 @@ def extract_batch(imgs, cfg: SiftConfig = SiftConfig(),
     dev = _resolve_device(device, cfg)
     if isinstance(imgs, np.ndarray):
         imgs = torch.from_numpy(imgs)
-    imgs = imgs.to(device=dev, dtype=torch.float32).contiguous()
     if imgs.dim() != 3:
         raise ValueError(f"expected (B, H, W) images, got {tuple(imgs.shape)}")
-    if cfg.mode == "parity":
-        return extract_parity(imgs, cfg)
-    return extract_lowe_batched(imgs, cfg, with_descriptors)
+    B, H, W = imgs.shape
+    with stage("extract", B=B, H=H, W=W, mode=cfg.mode):
+        imgs = imgs.to(device=dev, dtype=torch.float32).contiguous()
+        if cfg.mode == "parity":
+            with stage("parity"):
+                return extract_parity(imgs, cfg)
+        return extract_lowe_batched(imgs, cfg, with_descriptors)
 
 
 def extract(img, cfg: SiftConfig = SiftConfig(), with_descriptors: bool = True,

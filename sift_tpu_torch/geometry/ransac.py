@@ -21,6 +21,7 @@ import torch
 from sift_tpu_torch.config import RansacConfig
 from sift_tpu_torch.frontend.extrema import top_k_stable
 from sift_tpu_torch.types import TwoViewEstimate
+from sift_tpu_torch.utils.metrics import stage
 
 _NEG = -1e30
 
@@ -68,36 +69,44 @@ def ransac(noise: Noise,
               squared pixel errors.
     refit_fn: optional weighted refit ((N, 2), (N, 2), (N,) weights) ->
               (3, 3), applied to the best hypothesis's inliers.
+    Spans: ransac, holding sample, solve, score and refit.
     """
-    idx = sample_minimal_sets(noise, valid, cfg.num_hypotheses, sample_size)
-    models = solve_fn(pa[idx], pb[idx])                         # (H, 3, 3)
-    errors = error_fn(models, pa, pb)                           # (H, N)
+    with stage("ransac"):
+        with stage("sample"):
+            idx = sample_minimal_sets(noise, valid, cfg.num_hypotheses,
+                                      sample_size)
+        with stage("solve"):
+            models = solve_fn(pa[idx], pb[idx])                 # (H, 3, 3)
 
-    thresh2 = cfg.inlier_threshold * cfg.inlier_threshold
-    inlier_mask = (errors < thresh2) & valid[None, :]
-    counts = inlier_mask.sum(dim=-1)
+        thresh2 = cfg.inlier_threshold * cfg.inlier_threshold
+        with stage("score"):
+            errors = error_fn(models, pa, pb)                   # (H, N)
+            inlier_mask = (errors < thresh2) & valid[None, :]
+            counts = inlier_mask.sum(dim=-1)
 
-    # Tie-break equal counts by total inlier error (lower is better).
-    err_sum = torch.where(inlier_mask, errors, 0.0).sum(dim=-1)
-    order = counts.to(torch.float32) - err_sum / (err_sum.max() + 1.0)
-    best = torch.argmax(order)
+            # Tie-break equal counts by total inlier error (lower is better).
+            err_sum = torch.where(inlier_mask, errors, 0.0).sum(dim=-1)
+            order = counts.to(torch.float32) - err_sum / (err_sum.max() + 1.0)
+            best = torch.argmax(order)
 
-    model = models[best]
-    inliers = inlier_mask[best]
-    num_inliers = counts[best]
+            model = models[best]
+            inliers = inlier_mask[best]
+            num_inliers = counts[best]
 
-    if cfg.refit and refit_fn is not None:
-        refit_model = refit_fn(pa, pb, inliers.to(pa.dtype))
-        refit_inliers = (error_fn(refit_model, pa, pb) < thresh2) & valid
-        refit_count = refit_inliers.sum()
-        better = refit_count >= num_inliers
-        model = torch.where(better, refit_model, model)
-        inliers = torch.where(better, refit_inliers, inliers)
-        num_inliers = torch.where(better, refit_count, num_inliers)
+        if cfg.refit and refit_fn is not None:
+            with stage("refit"):
+                refit_model = refit_fn(pa, pb, inliers.to(pa.dtype))
+                refit_inliers = ((error_fn(refit_model, pa, pb) < thresh2)
+                                 & valid)
+                refit_count = refit_inliers.sum()
+                better = refit_count >= num_inliers
+                model = torch.where(better, refit_model, model)
+                inliers = torch.where(better, refit_inliers, inliers)
+                num_inliers = torch.where(better, refit_count, num_inliers)
 
-    return TwoViewEstimate(
-        model=model,
-        inliers=inliers,
-        num_inliers=num_inliers.to(torch.int32),
-        success=num_inliers >= cfg.min_inliers,
-    )
+        return TwoViewEstimate(
+            model=model,
+            inliers=inliers,
+            num_inliers=num_inliers.to(torch.int32),
+            success=num_inliers >= cfg.min_inliers,
+        )

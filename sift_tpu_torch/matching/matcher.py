@@ -26,6 +26,7 @@ from sift_tpu_torch.frontend.extrema import top_k_stable
 from sift_tpu_torch.kernels.cuda import match as match_kernel
 from sift_tpu_torch.types import Keypoints, Matches
 from sift_tpu_torch.utils.device import check_f32_matmul
+from sift_tpu_torch.utils.metrics import stage
 
 _BIG = 1e30
 _STREAMING_MIN_PAIRS = 4096 * 4096
@@ -184,25 +185,30 @@ def match_descriptors(desc_a: torch.Tensor, valid_a: torch.Tensor,
     `Matches` sorted by ascending distance; invalid slots hold index 0 and
     distance 1e30.
     """
-    if _use_streaming(cfg, desc_a, desc_b.shape[0]):
-        return _match_streaming(desc_a, valid_a, desc_b, valid_b, cfg)
-    d = _masked_distances(desc_a, valid_a, desc_b, valid_b, cfg.metric)
-    best, second, best_idx = _top2_min(d)
-    best_back = torch.argmin(d, dim=0) if cfg.mutual else None
-    return _accept(best, second, best_idx, valid_a, best_back, cfg)
+    with stage("match"):
+        with stage("top2"):
+            if _use_streaming(cfg, desc_a, desc_b.shape[0]):
+                best, second, best_idx, best_back = _top2_streaming(
+                    desc_a, valid_a, desc_b, valid_b, cfg)
+            else:
+                d = _masked_distances(desc_a, valid_a, desc_b, valid_b,
+                                      cfg.metric)
+                best, second, best_idx = _top2_min(d)
+                best_back = torch.argmin(d, dim=0) if cfg.mutual else None
+        with stage("accept"):
+            return _accept(best, second, best_idx, valid_a, best_back, cfg)
 
 
-def _match_streaming(desc_a, valid_a, desc_b, valid_b,
-                     cfg: MatchConfig) -> Matches:
-    """Large-N path: the streaming top-2 (no distance matrix), forward and,
-    for the mutual check, with the sides swapped; ratio, mutual and
-    compaction as on the dense path."""
+def _top2_streaming(desc_a, valid_a, desc_b, valid_b, cfg: MatchConfig):
+    """Large-N top-2: the streaming kernel (no distance matrix), forward
+    and, for the mutual check, with the sides swapped; returns best,
+    second, best_idx and best_back (None without `mutual`)."""
     a, b = _streaming_inputs(desc_a, desc_b, cfg.metric)
     best, second, best_idx = match_kernel.streaming_top2(a, valid_a, b, valid_b)
     best_back = None
     if cfg.mutual:
         _, _, best_back = match_kernel.streaming_top2(b, valid_b, a, valid_a)
-    return _accept(best, second, best_idx, valid_a, best_back, cfg)
+    return best, second, best_idx, best_back
 
 
 def match_descriptors_guided(desc_a, valid_a, desc_b, valid_b,
